@@ -1,0 +1,143 @@
+"""Wrappers for the hand-written neighbor and IDM kernels (``csrc/idm.cu``).
+
+``neighbor_kernel`` replaces ``repro/kernels/idm.py::neighbor_kernel`` and
+``idm_accel_kernel`` replaces ``repro/kernels/idm.py::idm_accel_kernel``.
+Both take a leading instance axis, so one launch serves a whole batch of
+instances (the reference gets that with ``vmap`` of the ``pallas_call``).
+
+On a CPU tensor a wrapper runs the kernel's plain PyTorch version
+(``repro_torch.kernels.ref``). On a CUDA tensor it checks device, dtype,
+shape and contiguity, allocates the outputs with ``torch.empty``, launches
+the kernel on the tensors' card (under a device guard, so ``cuda:1`` works
+whatever the current card is) and its current stream without
+synchronising, raises if the launch was refused, and adds one to
+``launches[<name>]``. There is no
+fallback from a CUDA tensor to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.ref import ref_idm_accel, ref_neighbor_mq
+
+#: launch counts per kernel; only a real kernel launch increments them
+launches = {"neighbor_kernel": 0, "idm_accel_kernel": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    for k in launches:
+        launches[k] = 0
+
+
+def _fn(name: str, argtypes):
+    """The C entry ``name`` of ``csrc/idm.cu`` (ctypes caches the attribute,
+    so its signature is set once)."""
+    from repro_torch.kernels.build import load
+
+    fn = getattr(load("idm"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    launches[name] += 1
+
+
+def neighbor_kernel(pos, lane, active, query_lanes, *, veh_len: float = 4.5):
+    """Multi-query lead+follower search.
+
+    ``pos`` f32, ``lane`` i32, ``active`` bool, all ``[B, N]``;
+    ``query_lanes`` i32 ``[B, Q, N]``. Returns ``(lead_idx, lead_gap,
+    has_lead, foll_idx, foll_gap, has_foll)``, each ``[B, Q, N]``,
+    bit-exact with :func:`repro_torch.kernels.ref.ref_neighbor_mq`.
+    """
+    if pos.device.type == "cpu":
+        return ref_neighbor_mq(pos, lane, active, query_lanes, veh_len)
+    if pos.device.type != "cuda":
+        raise ValueError(f"neighbor_kernel runs on cpu or cuda, not {pos.device}")
+    b, n = pos.shape
+    q = query_lanes.shape[1] if query_lanes.dim() == 3 else -1
+    dev = pos.device
+    _check("pos", pos, torch.float32, (b, n), dev)
+    _check("lane", lane, torch.int32, (b, n), dev)
+    _check("active", active, torch.bool, (b, n), dev)
+    _check("query_lanes", query_lanes, torch.int32, (b, q, n), dev)
+    if b > 65535 or q > 65535:
+        raise ValueError("neighbor_kernel takes at most 65535 instances and "
+                         "65535 query rows")
+    shape = (b, q, n)
+    li = torch.empty(shape, dtype=torch.int32, device=dev)
+    lg = torch.empty(shape, dtype=torch.float32, device=dev)
+    lh = torch.empty(shape, dtype=torch.bool, device=dev)
+    fi = torch.empty(shape, dtype=torch.int32, device=dev)
+    fg = torch.empty(shape, dtype=torch.float32, device=dev)
+    fh = torch.empty(shape, dtype=torch.bool, device=dev)
+    fn = _fn("neighbor_mq_launch",
+             [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P])
+    with torch.cuda.device(dev):   # the runtime launches on its current card
+        err = fn(pos.data_ptr(), lane.data_ptr(), active.data_ptr(),
+                 query_lanes.data_ptr(), b, q, n, veh_len,
+                 li.data_ptr(), lg.data_ptr(), lh.data_ptr(),
+                 fi.data_ptr(), fg.data_ptr(), fh.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _launched("neighbor_kernel", err)
+    return li, lg, lh, fi, fg, fh
+
+
+def idm_accel_kernel(pos, vel, lane, active, v0, T, a_max, b_comf, s0, *,
+                     veh_len: float = 4.5):
+    """Same-lane lead search fused with IDM: nine ``[B, N]`` inputs (f32,
+    except ``lane`` i32 and ``active`` bool) → f32 ``[B, N]`` accelerations,
+    within ``rtol = atol = 1e-6`` of
+    :func:`repro_torch.kernels.ref.ref_idm_accel`."""
+    if pos.device.type == "cpu":
+        return ref_idm_accel(pos, vel, lane, active, v0, T, a_max, b_comf, s0,
+                             veh_len)
+    if pos.device.type != "cuda":
+        raise ValueError(f"idm_accel_kernel runs on cpu or cuda, not {pos.device}")
+    b, n = pos.shape
+    dev = pos.device
+    for name, t, dt in (
+        ("pos", pos, torch.float32), ("vel", vel, torch.float32),
+        ("lane", lane, torch.int32), ("active", active, torch.bool),
+        ("v0", v0, torch.float32), ("T", T, torch.float32),
+        ("a_max", a_max, torch.float32), ("b_comf", b_comf, torch.float32),
+        ("s0", s0, torch.float32),
+    ):
+        _check(name, t, dt, (b, n), dev)
+    if b > 65535:
+        raise ValueError("idm_accel_kernel takes at most 65535 instances")
+    acc = torch.empty((b, n), dtype=torch.float32, device=dev)
+    fn = _fn("idm_accel_launch", [_P] * 9 + [_I, _I, _F, _P, _P])
+    with torch.cuda.device(dev):
+        err = fn(pos.data_ptr(), vel.data_ptr(), lane.data_ptr(),
+                 active.data_ptr(), v0.data_ptr(), T.data_ptr(),
+                 a_max.data_ptr(), b_comf.data_ptr(), s0.data_ptr(), b, n,
+                 veh_len, acc.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _launched("idm_accel_kernel", err)
+    return acc

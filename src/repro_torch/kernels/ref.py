@@ -1,0 +1,92 @@
+"""Plain PyTorch versions of the hand-written kernels (the contracts).
+
+Every tensor carries a leading instance axis ``B``: the reference's
+per-instance functions under ``vmap`` become one batched call here.
+
+``neighbor_info``
+    The masked O(N²) lead/follower search of ``repro/core/neighbors.py``
+    (``neighbor_info``), batched: ``[B, N]`` inputs and one query-lane
+    vector per instance.
+``ref_neighbor_mq``
+    The multi-query contract of ``neighbor_kernel``: ``[B, Q, N]`` query
+    lanes, one ``neighbor_info`` per query row.
+``ref_idm_accel``
+    Same-lane lead search fused with the IDM formula
+    (``repro/kernels/ref.py::ref_idm_accel``), batched.
+"""
+
+from __future__ import annotations
+
+import torch
+
+INF = 1e9
+
+
+def neighbor_info(pos, lane, active, veh_len, query_lane):
+    """Per-vehicle lead/follower in ``query_lane[b, i]``.
+
+    ``pos`` f32, ``lane``/``query_lane`` i32, ``active`` bool, all
+    ``[B, N]``. Returns ``(lead_idx, lead_gap, has_lead, foll_idx,
+    foll_gap, has_foll)``, each ``[B, N]``: strict ahead/behind, lowest
+    index on ties, absent = (0, ``INF - veh_len``, False); gaps are
+    bumper to bumper.
+    """
+    n = pos.shape[-1]
+    dpos = pos[:, None, :] - pos[:, :, None]          # [b,i,j] = pos_j - pos_i
+    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+    pair_ok = (
+        (lane[:, None, :] == query_lane[:, :, None])
+        & active[:, None, :]
+        & active[:, :, None]
+        & ~eye
+    )
+    ahead = pair_ok & (dpos > 0.0)
+    behind = pair_ok & (dpos < 0.0)
+    inf = torch.tensor(INF, dtype=pos.dtype, device=pos.device)
+
+    lead_d = torch.where(ahead, dpos, inf)
+    lead_idx = lead_d.argmin(dim=-1).to(torch.int32)
+    lead_gap = lead_d.amin(dim=-1) - veh_len
+    has_lead = ahead.any(dim=-1)
+
+    foll_d = torch.where(behind, -dpos, inf)
+    foll_idx = foll_d.argmin(dim=-1).to(torch.int32)
+    foll_gap = foll_d.amin(dim=-1) - veh_len
+    has_foll = behind.any(dim=-1)
+    return lead_idx, lead_gap, has_lead, foll_idx, foll_gap, has_foll
+
+
+def ref_neighbor_mq(pos, lane, active, query_lanes, veh_len):
+    """``[B, N]`` world + ``[B, Q, N]`` query lanes → six ``[B, Q, N]``
+    tensors (lead idx/gap/has, follower idx/gap/has)."""
+    per_q = [
+        neighbor_info(pos, lane, active, veh_len, query_lanes[:, q])
+        for q in range(query_lanes.shape[1])
+    ]
+    return tuple(torch.stack(f, dim=1) for f in zip(*per_q))
+
+
+def ref_idm_accel(pos, vel, lane, active, v0, T, a_max, b_comf, s0, veh_len):
+    """Same-lane lead search + IDM acceleration, ``[B, N]`` → ``[B, N]``."""
+    n = pos.shape[-1]
+    dpos = pos[:, None, :] - pos[:, :, None]
+    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+    ahead = (
+        (lane[:, None, :] == lane[:, :, None])
+        & active[:, None, :] & active[:, :, None] & ~eye & (dpos > 0)
+    )
+    inf = torch.tensor(INF, dtype=pos.dtype, device=pos.device)
+    lead_d = torch.where(ahead, dpos, inf)
+    lead_idx = lead_d.argmin(dim=-1)
+    has_lead = ahead.any(dim=-1)
+    gap = torch.where(has_lead, lead_d.amin(dim=-1) - veh_len, inf)
+    v_lead = torch.where(has_lead, vel.gather(-1, lead_idx), 0.0)
+    dv = torch.where(has_lead, vel - v_lead, 0.0)
+
+    gap = gap.clamp_min(0.1)
+    s_star = s0 + (vel * T + vel * dv / (2.0 * torch.sqrt(a_max * b_comf))
+                   ).clamp_min(0.0)
+    r = vel / v0.clamp_min(0.1)
+    r2 = r * r
+    g = s_star / gap
+    return a_max * (1.0 - r2 * r2 - g * g)

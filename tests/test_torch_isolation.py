@@ -1,0 +1,75 @@
+"""The port stands alone: importing every ``repro_torch`` module and running
+its sweep launcher on the CPU never loads ``jax`` or ``repro``; asking for
+``cuda`` without a card raises instead of falling back to the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROBE = r"""
+import json, pkgutil, importlib, runpy, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.argv = ["repro_torch.launch.sweep", "--device", "cpu", "--instances", "4",
+            "--steps", "20", "--chunk-steps", "10", "--slots", "8",
+            "--scenario-mix", "all", "--neighbor-impl", "cuda",
+            "--out", sys.argv[1]]
+runpy.run_module("repro_torch.launch.sweep", run_name="__main__")
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"modules": names, "leaked": leaked}))
+"""
+
+
+def test_no_jax_or_reference_imports(tmp_path):
+    out = tmp_path / "sweep.json"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", PROBE, str(out)], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["leaked"] == []
+    assert "repro_torch.launch.sweep" in result["modules"]
+    assert "repro_torch.kernels.idm" in result["modules"]
+    records = json.loads(out.read_text())["records"]
+    assert len(records) == 4 and all(r["steps"] == 20 for r in records)
+
+
+def test_sources_never_name_jax_or_reference():
+    for path in sorted((SRC / "repro_torch").rglob("*.py")) + [
+        SRC.parent / "chip_smoke.py"
+    ]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                mod = words[1].split(".")[0]
+                assert mod not in ("jax", "jaxlib", "repro"), (path, line)
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    from repro_torch.convert import sweep_state_from_numpy
+    from repro_torch.core.sweep import SweepConfig, SweepRunner
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import sweep as launcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SweepRunner(SweepConfig(n_instances=2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        launcher.main(["--instances", "2", "--steps", "10"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        sweep_state_from_numpy(SimpleNamespace(trace=None), None)
+    assert resolve_device("cpu") == torch.device("cpu")
