@@ -1,0 +1,7 @@
+"""Architectures the port serves. Importing this package populates the
+registry; the other architectures of the reference come with the slices
+that port their layer kinds (ROADMAP queue 1)."""
+
+from repro_torch.configs import gemma2_2b, qwen15_05b  # noqa: F401
+
+ALL_ARCHS = ["gemma2-2b", "qwen1.5-0.5b"]

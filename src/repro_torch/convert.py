@@ -1,4 +1,7 @@
-"""Carry state across from the reference package, through numpy.
+"""Carry state and weights across from the reference package, through numpy.
+
+:func:`lm_params_from_numpy` turns the reference's LM parameters (a nested
+dict of numpy arrays) into the port's :class:`~repro_torch.models.lm.LM`.
 
 The sweep has no weights; its state plays their part. These functions take
 a reference ``SweepState``/``SimState``/``SimMetrics``/``ScenarioParams``
@@ -18,10 +21,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.config.base import ModelConfig
 from repro_torch.core.scenario import ScenarioParams
 from repro_torch.core.simulator import SimMetrics, SimState
 from repro_torch.core.sweep import SweepState
 from repro_torch.device import resolve_device
+from repro_torch.models.lm import LM, stack_plan
 
 
 def _tensor(x, device, batch: bool) -> torch.Tensor:
@@ -67,6 +72,66 @@ def sweep_state_from_numpy(tree, device) -> SweepState:
         chunk=_tensor(tree.chunk, device, False),
         scenario_id=_tensor(tree.scenario_id, device, False),
     )
+
+
+def _array_to_tensor(a) -> torch.Tensor:
+    """numpy → CPU tensor; a bfloat16 array (``ml_dtypes``, as JAX hands
+    them out) is carried across bit for bit through its uint16 words."""
+    a = np.array(a, order="C")   # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _index(tree, i: int) -> dict:
+    """Row ``i`` of every leaf of a stacked (scanned) parameter tree."""
+    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _flatten(tree, prefix: str, out: dict) -> dict:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _flatten(val, f"{prefix}{key}.", out)
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig, device) -> LM:
+    """The reference's ``lm_init`` parameters (nested dict, numpy leaves)
+    → an :class:`LM` on ``device`` (``None`` means ``cuda``).
+
+    The reference's scanned stack ``blocks/l{j}`` (leaves ``[n_blocks,
+    ...]``) is unstacked into layers ``i * len(pattern) + j`` after the
+    ``head_layers``, followed by the ``tail_layers``. Values are cast to
+    ``cfg.dtype``; every parameter must be present and no other.
+    """
+    device = resolve_device(device)
+    plan = stack_plan(cfg)
+    layers = list(tree.get("head_layers", []))
+    layers += [_index(tree["blocks"][f"l{j}"], i)
+               for i in range(plan.n_blocks) for j in range(len(plan.pattern))]
+    layers += list(tree.get("tail_layers", []))
+    state = _flatten({k: v for k, v in tree.items()
+                      if k not in ("blocks", "head_layers", "tail_layers")},
+                     "", {})
+    for i, layer in enumerate(layers):
+        _flatten(layer, f"layers.{i}.", state)
+    params = LM(cfg, device)
+    want = params.state_dict()
+    if set(state) != set(want):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(want) - set(state))}, unexpected "
+                         f"{sorted(set(state) - set(want))}")
+    with torch.no_grad():
+        for name, t in want.items():
+            src = _array_to_tensor(state[name])
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)}, expected "
+                                 f"{tuple(t.shape)}")
+            t.copy_(src.to(t.dtype))
+    return params
 
 
 def to_numpy(tree):

@@ -1,0 +1,99 @@
+"""Wrapper for the hand-written flash attention kernel
+(``csrc/flash_attention.cu``), which replaces
+``repro/kernels/flash_attention.py::flash_attention``.
+
+On a CPU tensor ``flash_attention`` runs the kernel's plain PyTorch version
+(:func:`repro_torch.kernels.ref.ref_attention`). On a CUDA tensor it checks
+device, dtype, shape and contiguity, allocates the output with
+``torch.empty``, launches the kernel on the tensors' card (under a device
+guard) and its current stream without synchronising, raises if the launch
+was refused, and adds one to ``launches["flash_attention"]``. There is no
+fallback from a CUDA tensor to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.ref import ref_attention
+
+#: launch count; only a real kernel launch increments it
+launches = {"flash_attention": 0}
+
+#: head dims the kernel is instantiated for (the Pallas kernel's table)
+HEAD_DIMS = (64, 128, 256)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = [_P] * 4 + [_I] * 9 + [_F, _F, _P]
+
+
+def reset_launches() -> None:
+    """Set the launch count to 0."""
+    for name in launches:
+        launches[name] = 0
+
+
+def _fn():
+    from repro_torch.kernels.build import load
+
+    fn = load("flash_attention").flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: float | None = None):
+    """Online-softmax attention: ``q [B, Sq, H, D]``, ``k``/``v
+    [B, Sk, K, D]`` (bf16 or f32, ``H % K == 0``) → ``[B, Sq, H, D]`` in
+    ``q``'s type, with end-aligned causal masking, a sliding ``window``
+    (0: none) and the tanh logit ``softcap`` (0: none)."""
+    b, sq, h, d = q.shape
+    scale = d**-0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return ref_attention(q, k, v, causal, window, softcap, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k must have shape [{b}, Sk, K, {d}], got "
+                         f"{tuple(k.shape)}")
+    sk, kh = k.shape[1], k.shape[2]
+    if h % kh != 0:
+        raise ValueError(f"{h} query heads do not group over {kh} kv heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if min(b, sq, sk) == 0:
+        raise ValueError("flash_attention needs non-empty q and k")
+    if b > 65535 or h > 65535:
+        raise ValueError("flash_attention takes at most 65535 batch rows "
+                         "and 65535 heads")
+    for name, t, shape in (("q", q, (b, sq, h, d)), ("k", k, (b, sk, kh, d)),
+                           ("v", v, (b, sk, kh, d))):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty_like(q)
+    fn = _fn()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 int(q.dtype == torch.bfloat16), b, sq, sk, h, kh, d,
+                 int(causal), int(window), float(softcap), float(scale),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed with CUDA error "
+                           f"{err}")
+    launches["flash_attention"] += 1
+    return out

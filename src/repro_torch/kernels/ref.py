@@ -13,6 +13,11 @@ per-instance functions under ``vmap`` become one batched call here.
 ``ref_idm_accel``
     Same-lane lead search fused with the IDM formula
     (``repro/kernels/ref.py::ref_idm_accel``), batched.
+``ref_attention``
+    The contract of ``flash_attention`` (``repro/kernels/ref.py::
+    ref_attention``): GQA attention with end-aligned causal masking, a
+    sliding window and the tanh logit softcap; scores and softmax in f32,
+    the probabilities cast to ``v``'s type before the product with ``v``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 
 INF = 1e9
+NEG_INF = -2.0**30
 
 
 def neighbor_info(pos, lane, active, veh_len, query_lane):
@@ -90,3 +96,29 @@ def ref_idm_accel(pos, vel, lane, active, v0, T, a_max, b_comf, s0, veh_len):
     r2 = r * r
     g = s_star / gap
     return a_max * (1.0 - r2 * r2 - g * g)
+
+
+def ref_attention(q, k, v, causal=True, window=0, softcap=0.0, scale=None):
+    """``q [B, Sq, H, D]``, ``k``/``v [B, Sk, K, D]`` → ``[B, Sq, H, D]`` in
+    ``v``'s type. Query ``i`` sits at position ``i + Sk - Sq``; masked
+    scores take the finite ``NEG_INF``."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = d**-0.5 if scale is None else scale
+    qg = q.reshape(b, sq, kh, g, d)
+    # bf16 products are exact in f32, so this is the reference's f32 score
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
+    return o.reshape(b, sq, h, d)

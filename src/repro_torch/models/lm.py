@@ -1,0 +1,160 @@
+"""Decoder-only LM assembly (port of ``repro/models/lm.py``).
+
+The reference stacks the repeated layers' parameters ``[n_blocks, ...]``
+and scans over them; here the stack is an ``nn.ModuleList`` with one
+:class:`~repro_torch.models.blocks.Block` per layer, in the reference's
+order: the ``head`` layers, then ``n_blocks`` repetitions of
+``cfg.layer_pattern``, then the ``tail`` layers (:func:`stack_plan`). The
+converter (:func:`repro_torch.convert.lm_params_from_numpy`) unstacks the
+reference's parameters into it. Caches are a list with one dict per layer.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.models.blocks import (
+    Block,
+    block_apply,
+    block_cache_init,
+    block_decode,
+    block_prefill,
+)
+from repro_torch.models.common import (
+    Embedding,
+    Norm,
+    cdtype,
+    dense_init,
+    embed_tokens,
+    logits_from_hidden,
+    norm,
+    param,
+)
+
+
+class StackPlan(NamedTuple):
+    head: tuple[tuple[str, bool, int | None], ...]  # (kind, moe, d_ff)
+    n_blocks: int
+    pattern: tuple[tuple[str, bool], ...]           # (kind, moe) per position
+    tail: tuple[tuple[str, bool], ...]
+
+
+def stack_plan(cfg: ModelConfig) -> StackPlan:
+    head = []
+    for i in range(cfg.first_dense_layers):
+        head.append((cfg.layer_kind(i), False, cfg.dense_d_ff or cfg.d_ff))
+    rest = cfg.n_layers - len(head)
+    plen = cfg.pattern_len
+    n_blocks = rest // plen
+    moe = cfg.n_experts > 0
+    pattern = tuple(
+        (cfg.layer_kind(len(head) + j), moe) for j in range(plen)
+    )
+    tail = tuple(
+        (cfg.layer_kind(len(head) + n_blocks * plen + j), moe)
+        for j in range(rest - n_blocks * plen)
+    )
+    return StackPlan(tuple(head), n_blocks, pattern, tail)
+
+
+def layer_plan(cfg: ModelConfig) -> list[tuple[str, bool, int | None]]:
+    """(kind, moe, d_ff) of every layer, in stack order."""
+    plan = stack_plan(cfg)
+    return (list(plan.head)
+            + [(kind, moe, None) for kind, moe in plan.pattern] * plan.n_blocks
+            + [(kind, moe, None) for kind, moe in plan.tail])
+
+
+class LMHead(nn.Module):
+    def __init__(self, cfg: ModelConfig, device) -> None:
+        super().__init__()
+        self.w = param((cfg.d_model, cfg.vocab_size), cdtype(cfg), device)
+
+
+class LM(nn.Module):
+    """Parameters of a decoder-only LM: ``embed``, ``layers``,
+    ``final_norm`` and, without tied embeddings, ``lm_head``."""
+
+    def __init__(self, cfg: ModelConfig, device) -> None:
+        super().__init__()
+        self.embed = Embedding(cfg, device)
+        self.layers = nn.ModuleList(
+            Block(cfg, kind, device, moe=moe, d_ff=d_ff)
+            for kind, moe, d_ff in layer_plan(cfg))
+        self.final_norm = Norm(cfg, cfg.d_model, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = LMHead(cfg, device)
+
+    def reset_parameters(self, generator) -> None:
+        self.embed.reset_parameters(generator)
+        for layer in self.layers:
+            layer.reset_parameters(generator)
+        self.final_norm.reset_parameters()
+        if hasattr(self, "lm_head"):
+            dense_init(self.lm_head.w, self.lm_head.w.shape[0], generator)
+
+
+def lm_init(cfg: ModelConfig, generator: torch.Generator) -> LM:
+    """A seeded LM on ``generator``'s device."""
+    params = LM(cfg, generator.device)
+    params.reset_parameters(generator)
+    return params
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device)[None].expand(b, s)
+
+
+def lm_apply(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+             positions: torch.Tensor | None = None):
+    """Returns (logits [B,S,V] f32, moe_aux scalar)."""
+    x = embed_tokens(cfg, params.embed, tokens)
+    if positions is None:
+        positions = _positions(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in params.layers:
+        x, a = block_apply(cfg, p, x, positions)
+        aux = aux + a
+    x = norm(cfg, params.final_norm, x)
+    logits = logits_from_hidden(cfg, params.embed,
+                                getattr(params, "lm_head", None), x)
+    return logits, aux
+
+
+def lm_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
+                  device) -> list[dict]:
+    return [block_cache_init(cfg, kind, batch, max_seq, device)
+            for kind, _, _ in layer_plan(cfg)]
+
+
+def lm_prefill(params: LM, cfg: ModelConfig, cache: list[dict],
+               tokens: torch.Tensor, positions: torch.Tensor | None = None):
+    """Full-sequence prefill; returns (last-position logits [B,V], cache),
+    the cache filled in place."""
+    x = embed_tokens(cfg, params.embed, tokens)
+    if positions is None:
+        positions = _positions(x)
+    for p, c in zip(params.layers, cache):
+        x, _ = block_prefill(cfg, p, x, positions, c)
+    x = norm(cfg, params.final_norm, x[:, -1:])
+    logits = logits_from_hidden(cfg, params.embed,
+                                getattr(params, "lm_head", None), x)
+    return logits[:, 0], cache
+
+
+def lm_decode(params: LM, cfg: ModelConfig, cache: list[dict],
+              tokens: torch.Tensor, pos: torch.Tensor):
+    """One decode step: tokens [B], pos [B] → (logits [B, V] f32, cache),
+    the cache written in place."""
+    x = embed_tokens(cfg, params.embed, tokens[:, None])
+    for p, c in zip(params.layers, cache):
+        x, _ = block_decode(cfg, p, x, pos, c)
+    x = norm(cfg, params.final_norm, x)
+    logits = logits_from_hidden(cfg, params.embed,
+                                getattr(params, "lm_head", None), x)
+    return logits[:, 0], cache

@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module and running
-its sweep launcher on the CPU never loads ``jax`` or ``repro``; asking for
-``cuda`` without a card raises instead of falling back to the CPU."""
+its sweep and serve launchers on the CPU never loads ``jax`` or ``repro``;
+asking for ``cuda`` without a card raises instead of falling back to the
+CPU."""
 
 import json
 import os
@@ -25,6 +26,9 @@ sys.argv = ["repro_torch.launch.sweep", "--device", "cpu", "--instances", "4",
             "--scenario-mix", "all", "--neighbor-impl", "cuda",
             "--out", sys.argv[1]]
 runpy.run_module("repro_torch.launch.sweep", run_name="__main__")
+sys.argv = ["repro_torch.launch.serve", "--device", "cpu", "--arch",
+            "gemma2-2b", "--requests", "2", "--max-new", "3"]
+runpy.run_module("repro_torch.launch.serve", run_name="__main__")
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"modules": names, "leaked": leaked}))
@@ -41,7 +45,11 @@ def test_no_jax_or_reference_imports(tmp_path):
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["leaked"] == []
     assert "repro_torch.launch.sweep" in result["modules"]
-    assert "repro_torch.kernels.idm" in result["modules"]
+    for name in ("repro_torch.kernels.idm", "repro_torch.kernels.flash_attention",
+                 "repro_torch.models.lm", "repro_torch.serve.engine",
+                 "repro_torch.launch.serve"):
+        assert name in result["modules"]
+    assert "[serve] completed 2/2 requests" in proc.stdout
     records = json.loads(out.read_text())["records"]
     assert len(records) == 4 and all(r["steps"] == 20 for r in records)
 
@@ -61,7 +69,10 @@ def test_cuda_request_without_card_raises(monkeypatch):
     from repro_torch.convert import sweep_state_from_numpy
     from repro_torch.core.sweep import SweepConfig, SweepRunner
     from repro_torch.device import resolve_device
+    from repro_torch.config.base import get_arch
+    from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import sweep as launcher
+    from repro_torch.models.registry import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -72,4 +83,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
         launcher.main(["--instances", "2", "--steps", "10"])
     with pytest.raises(RuntimeError, match="cuda"):
         sweep_state_from_numpy(SimpleNamespace(trace=None), None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_launcher.main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(get_arch("gemma2-2b").reduced())
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card. Every test here carries the ``cuda`` marker and skips without a GPU.
+card, and the LM stack served through the flash attention kernel. Every
+test here carries the ``cuda`` marker and skips without a GPU.
 
 This file imports torch and the port only (no JAX), so it also runs on a
 GPU machine without the reference installed::
@@ -14,7 +15,12 @@ import torch
 from repro_torch.core.neighbors import build_tables
 from repro_torch.core.scenario import SimConfig
 from repro_torch.core.sweep import SweepConfig, SweepRunner
+from repro_torch.config.base import ServeConfig, get_arch
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import idm, ref
+from repro_torch.models.attention import attention_impl
+from repro_torch.models.registry import build_model
+from repro_torch.serve.engine import ServeEngine
 
 L = 4  # 3 main lanes + ramp
 FIELDS = ("lead_idx", "lead_gap", "has_lead", "foll_idx", "foll_gap",
@@ -168,3 +174,129 @@ def test_runner_refuses_a_state_from_another_device(cuda):
         card.run(cpu_state)
     with pytest.raises(ValueError, match="device"):
         SweepRunner(cfg, device="cpu").run_chunk(card.init())
+
+
+# flash attention: the reference's kernel tolerances (tests/test_kernels.py)
+FLASH_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=8e-3),
+             torch.float32: dict(rtol=2e-3, atol=2e-4)}
+
+
+def rand_qkv(seed, dev, dtype, b, sq, sk, h, kh, d, q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
+    return [torch.from_numpy(x).to(dev, dtype) for x in (q * q_scale, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal,window,cap", [
+    (1, 37, 37, 8, 4, 256, True, 0, 50.0),      # gemma2 global, ragged
+    (1, 300, 300, 8, 4, 256, True, 128, 50.0),  # gemma2 local, window < S
+    (2, 130, 130, 16, 16, 64, True, 0, 0.0),    # qwen MHA
+    (1, 64, 200, 4, 1, 128, True, 50, 0.0),     # end-aligned queries, MQA
+    (1, 77, 77, 4, 2, 128, False, 0, 0.0),      # non-causal
+    (1, 100, 100, 2, 2, 64, False, 30, 0.0),    # window without causality
+])
+def test_flash_attention_matches_plain(cuda, b, sq, sk, h, kh, d, causal,
+                                       window, cap, dtype):
+    q, k, v = rand_qkv(sq + d, cuda, dtype, b, sq, sk, h, kh, d)
+    before = fa.launches["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=cap)
+    want = ref.ref_attention(q, k, v, causal, window, cap)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_scale,cap,window", [
+    (20.0, 50.0, 0),    # gemma2's cap, scores of about N(0, 20^2)
+    (20.0, 50.0, 128),  # the same on a local layer
+    (1.0, 2.0, 0),      # unit scores against a small cap
+])
+def test_flash_attention_softcap_at_the_cap(cuda, q_scale, cap, window,
+                                            dtype):
+    """Scores that reach the cap, so that the tanh changes the output by
+    far more than the tolerance: a kernel without its softcap fails here
+    (at unit scores and cap 50 it moves the output by about 1e-4)."""
+    q, k, v = rand_qkv(7, cuda, dtype, 1, 300, 300, 8, 4, 256, q_scale)
+    got = fa.flash_attention(q, k, v, causal=True, window=window, softcap=cap)
+    want = ref.ref_attention(q, k, v, True, window, cap)
+    uncapped = ref.ref_attention(q, k, v, True, window, 0.0)
+    torch.cuda.synchronize()
+    assert float((want.float() - uncapped.float()).abs().max()) > \
+        50 * FLASH_TOL[dtype]["atol"]
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    """A CUDA tensor the kernel cannot take raises; it never runs the plain
+    version instead."""
+    q, k, v = rand_qkv(0, cuda, torch.bfloat16, 1, 32, 32, 4, 2, 64)
+    before = fa.launches["flash_attention"]
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                           v[..., :16].contiguous())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.cpu(), v)
+    assert fa.launches["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_model_attention_goes_through_the_kernel(cuda):
+    """A reduced gemma2 forward on the card launches the kernel once per
+    layer by default and matches the plain path (f32: the kernel and the
+    plain path sum in other orders). Head dim 64: the kernel takes the
+    Pallas kernel's head dims, 64, 128 and 256."""
+    cfg = get_arch("gemma2-2b").reduced(dtype="float32", head_dim=64)
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 40)))
+    fa.reset_launches()
+    got, _ = model.apply(params, {"tokens": toks.to(cuda)})
+    assert fa.launches["flash_attention"] == cfg.n_layers
+    with attention_impl("xla"):
+        want, _ = model.apply(params, {"tokens": toks.to(cuda)})
+    assert fa.launches["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_matches_per_request_greedy(cuda):
+    cfg = get_arch("gemma2-2b").reduced(dtype="float32", head_dim=64)
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(1))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, size=n) for n in (5, 21, 3)]
+    refs = []
+    with torch.inference_mode():
+        for pr in prompts:
+            cache = model.init_cache(1, 48)
+            logits, cache = model.prefill(
+                params, cache, {"tokens": torch.from_numpy(pr[None]).to(cuda)})
+            toks = [int(logits.argmax(-1)[0])]
+            for t in range(3):
+                pos = torch.tensor([len(pr) + t], dtype=torch.int32,
+                                   device=cuda)
+                logits, cache = model.decode(
+                    params, cache, torch.tensor([toks[-1]], device=cuda), pos)
+                toks.append(int(logits.argmax(-1)[0]))
+            refs.append(toks)
+    fa.reset_launches()
+    eng = ServeEngine(model, params, ServeConfig(max_batch=2, max_seq=48))
+    rids = [eng.submit(pr, max_new=4) for pr in prompts]
+    results = eng.run()
+    assert [results[r] for r in rids] == refs
+    assert fa.launches["flash_attention"] == cfg.n_layers * len(prompts)

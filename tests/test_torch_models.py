@@ -1,0 +1,168 @@
+"""The port's LM stack against the reference's, on the CPU.
+
+Reduced ``gemma2-2b`` (local/global layers, window 16, softcaps, post
+norms, gelu, tied embeddings scaled by sqrt(d)) and ``qwen1.5-0.5b`` (MHA,
+QKV bias, silu): the reference's seeded parameters, with every norm scale
+and bias redrawn with numpy so that none is the identity, are carried
+across by ``repro_torch.convert.lm_params_from_numpy``; the same numpy
+tokens then go through ``Model.apply``, ``prefill`` and ``decode`` of both.
+
+Tolerances on logits: f32 ``rtol=1e-5, atol=2e-5`` (same f32 arithmetic,
+sums in another order; measured errors are below 1e-6); bf16
+``rtol=atol=3e-2``, the reference's own bound for a whole-model forward
+through another attention path (``tests/test_kernels_integration.py``).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_arch as jax_arch
+from repro.models import build_model as jax_build
+from repro_torch.config.base import get_arch
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.models.lm import stack_plan
+from repro_torch.models.registry import build_model
+
+TOL = {"float32": dict(rtol=1e-5, atol=2e-5),
+       "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+VOCAB = 256  # the reduced configs' vocabulary
+
+
+def _perturb(tree, rng):
+    """Redraw norm scales and attention biases (zero-initialised in the
+    reference), keeping each leaf's dtype."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out[key] = _perturb(val, rng)
+        elif isinstance(val, list):
+            out[key] = [_perturb(v, rng) for v in val]
+        elif key in ("scale", "bq", "bk", "bv"):
+            new = rng.normal(0.0, 0.1, val.shape).astype(np.float32)
+            out[key] = jnp.asarray(new, val.dtype)
+        else:
+            out[key] = val
+    return out
+
+
+def _pair(arch, dtype, **overrides):
+    jcfg = dataclasses.replace(jax_arch(arch).reduced(**overrides),
+                               dtype=dtype)
+    cfg = dataclasses.replace(get_arch(arch).reduced(**overrides),
+                              dtype=dtype)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    jm = jax_build(jcfg)
+    jp = _perturb(jm.init(jax.random.key(0)), np.random.default_rng(1))
+    tm = build_model(cfg, "cpu")
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    return jm, jp, tm, tp
+
+
+def _close(got: torch.Tensor, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+
+
+CASES = [("gemma2-2b", "float32", {}), ("gemma2-2b", "bfloat16", {}),
+         ("gemma2-2b", "float32", {"n_kv_heads": 2}),
+         ("qwen1.5-0.5b", "float32", {}), ("qwen1.5-0.5b", "bfloat16", {})]
+
+
+@pytest.mark.parametrize("arch,dtype,overrides", CASES)
+def test_apply_prefill_decode_match_reference(arch, dtype, overrides):
+    """Prompt of 40 tokens: longer than gemma2's reduced window (16), so
+    its local layers ring-roll their caches; then 3 decode steps."""
+    jm, jp, tm, tp = _pair(arch, dtype, **overrides)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, VOCAB, (2, 40))
+
+    jl, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)})
+    tl, aux = tm.apply(tp, {"tokens": torch.from_numpy(toks)})
+    assert tl.dtype == torch.float32 and tl.shape == (2, 40, VOCAB)
+    assert float(aux) == 0.0
+    _close(tl, jl, dtype)
+
+    jc, tc = jm.init_cache(2, 64), tm.init_cache(2, 64)
+    jl, jc = jm.prefill(jp, jc, {"tokens": jnp.asarray(toks)})
+    tl, tc = tm.prefill(tp, tc, {"tokens": torch.from_numpy(toks)})
+    _close(tl, jl, dtype)
+    for step in range(3):
+        tok = rng.integers(0, VOCAB, (2,))
+        pos = np.full((2,), 40 + step, np.int32)
+        jl, jc = jm.decode(jp, jc, jnp.asarray(tok), jnp.asarray(pos))
+        tl, tc = tm.decode(tp, tc, torch.from_numpy(tok),
+                           torch.from_numpy(pos))
+        _close(tl, jl, dtype)
+
+
+def test_ring_rolled_cache_matches_reference():
+    """After a prompt longer than the window, each local layer's cache holds
+    the last ``window`` entries at slot ``pos % window``, as the
+    reference's; the global layers hold the whole prompt."""
+    jm, jp, tm, tp = _pair("gemma2-2b", "float32")
+    cfg = tm.cfg
+    toks = np.random.default_rng(3).integers(0, VOCAB, (1, 37))
+    _, jc = jm.prefill(jp, jm.init_cache(1, 48), {"tokens": jnp.asarray(toks)})
+    _, tc = tm.prefill(tp, tm.init_cache(1, 48),
+                       {"tokens": torch.from_numpy(toks)})
+    plan = stack_plan(cfg)
+    for i in range(plan.n_blocks):
+        for j, (kind, _) in enumerate(plan.pattern):
+            want = jax.tree.map(lambda a: np.asarray(a[i], np.float32),
+                                jc["blocks"][f"l{j}"])
+            got = tc[i * len(plan.pattern) + j]
+            assert got["k"].shape[1] == (cfg.window if kind == "local" else 48)
+            np.testing.assert_array_equal(got["pos"].numpy(), want["pos"])
+            for name in ("k", "v"):
+                np.testing.assert_allclose(got[name].numpy(), want[name],
+                                           **TOL["float32"])
+    local = tc[0]["pos"][0].tolist()
+    assert sorted(local) == list(range(37 - cfg.window, 37))
+    assert all(p % cfg.window == slot for slot, p in enumerate(local))
+
+
+def test_converter_checks_names_and_shapes():
+    cfg = get_arch("qwen1.5-0.5b").reduced(dtype="float32")
+    jm = jax_build(jax_arch("qwen1.5-0.5b").reduced(dtype="float32"))
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
+    params = lm_params_from_numpy(tree, cfg, "cpu")
+    assert len(params.layers) == cfg.n_layers
+    np.testing.assert_array_equal(params.layers[1].mixer.wq.numpy(),
+                                  tree["blocks"]["l0"]["mixer"]["wq"][1])
+    del tree["final_norm"]
+    with pytest.raises(ValueError, match="final_norm"):
+        lm_params_from_numpy(tree, cfg, "cpu")
+
+
+def test_bf16_weights_carry_across_bit_for_bit():
+    """JAX hands bf16 leaves out as ml_dtypes arrays; they arrive unchanged."""
+    cfg = get_arch("gemma2-2b").reduced()
+    jm = jax_build(jax_arch("gemma2-2b").reduced())
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
+    assert tree["embed"]["table"].dtype.name == "bfloat16"
+    params = lm_params_from_numpy(tree, cfg, "cpu")
+    assert params.embed.table.dtype == torch.bfloat16
+    np.testing.assert_array_equal(params.embed.table.float().numpy(),
+                                  tree["embed"]["table"].astype(np.float32))
+
+
+def test_port_init_is_seeded_and_in_the_configured_type():
+    cfg = get_arch("gemma2-2b").reduced()
+    model = build_model(cfg, "cpu")
+    a = model.init(torch.Generator().manual_seed(5))
+    b = model.init(torch.Generator().manual_seed(5))
+    for (name, x), y in zip(a.named_parameters(), b.parameters()):
+        assert x.dtype == torch.bfloat16 and torch.equal(x, y), name
+        assert not x.requires_grad
+    # the fan-in truncated normal of the reference: |w| <= 2 / sqrt(fan_in)
+    wq = a.layers[0].mixer.wq.float()
+    assert float(wq.abs().max()) <= 2 * cfg.d_model**-0.5 * 1.01
+    assert float(a.layers[0].norm1.scale.abs().max()) == 0.0
+    with pytest.raises(NotImplementedError):
+        build_model(get_arch("gemma2-2b").reduced(
+            layer_pattern=("recurrent",)), "cpu").init(torch.Generator())
