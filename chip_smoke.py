@@ -8,8 +8,8 @@ Run from the repository root with no arguments::
 Phases, in order; any failure raises and exits non-zero:
 
 1. card   — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
-2. build  — compile ``src/repro_torch/kernels/csrc/idm.cu`` and
-   ``flash_attention.cu`` with nvcc, one ``build.load`` per source, both
+2. build  — compile ``src/repro_torch/kernels/csrc/{idm,flash_attention,
+   rglru,wkv6}.cu`` with nvcc, one ``build.load`` per source, all four
    started together;
 3. kernels — hold each sweep kernel against its plain PyTorch version
    on the card (``neighbor_kernel`` bit-exact on all six outputs;
@@ -31,28 +31,44 @@ Phases, in order; any failure raises and exits non-zero:
 8. attention — ``flash_attention`` against ``ref_attention`` at gemma2-2b's
    prefill shapes (B 1, H 8, K 4, D 256, S 37/512/6000, global and local
    window 4096, softcap 50), once more at S 512 with q scaled by 20 so that
-   the scores reach the cap, and at qwen1.5-0.5b's (H = K = 16, D 64), in
-   bf16 (rtol 2e-2, atol 8e-3) and f32 (rtol 2e-3, atol 2e-4), the
-   tolerances of ``tests/test_kernels.py``; kernel, plain version, bound
-   and the library call timed: ``scaled_dot_product_attention`` where the
-   softcap is 0, compiled ``flex_attention`` with a softcap ``score_mod``
-   and a causal/window block mask where it is not, in bf16 only (each held
-   against ``ref_attention`` first; the port never calls either);
-9. serve  — gemma2-2b at full width (26 layers, d_model 2304, vocab 256,000,
-   bf16, seeded random weights) through the serve launcher: 8 requests
-   (prompt lengths 16..7999 drawn from the seed, some longer than the 4096
-   window) through 4 slots, max_seq 8192, 32 new tokens each; every request
-   must complete with 32 tokens and the kernel must have launched 26 x the
-   prefills made; prints time to first token and prefill/decode tokens/s;
-10. serve vs plain — one 5000-token prompt's last-position prefill logits
-   through the kernel against ``attention_impl("xla")``, full width: in f32
-   within rtol = atol = 1e-3; in bf16 the kernel's distance to the f32
-   logits at most 1.25x the plain path's (``serve_vs_plain`` says why the
-   bf16 paths are not held to 3e-2 of each other);
-11. serve profile — one 6000-token prefill and 8 decode steps at 4 slots
-   under ``torch.profiler``: device busy time and share, the flash
-   kernel's time, the heaviest kernels;
-12. engine = greedy — gemma2-2b at full width in f32: the engine's tokens
+   the scores reach the cap, at qwen1.5-0.5b's (H = K = 16, D 64) and at
+   recurrentgemma-2b's local layers (H 10, K 1, D 256, window 2048, no
+   softcap, S 512/6000), in bf16 (rtol 2e-2, atol 8e-3) and f32 (rtol
+   2e-3, atol 2e-4), the tolerances of ``tests/test_kernels.py``; kernel,
+   plain version, bound and the library call timed:
+   ``scaled_dot_product_attention`` for the causal shapes without softcap,
+   compiled ``flex_attention`` (softcap ``score_mod``, causal/window block
+   mask, GQA) for the other shapes in bf16 (each held against
+   ``ref_attention`` first; the port never calls either);
+9. recurrences — ``rglru_linear_scan`` against ``ref_rglru`` (B 1 and 4,
+   W 2560, S 37/512/6000; ys rtol 2e-2 atol 2e-3 in bf16, 1e-5 in f32,
+   h_final 1e-4) and ``wkv6`` against ``ref_wkv6`` (B 1, H 40, K = V = 64,
+   S 37/512/4096/6000; 5e-2 in bf16, 1e-4 in f32, the state 1e-3), x or
+   r/k/v in bf16 and f32, the tolerances of ``tests/test_kernels.py``; two
+   chunks through ``h0``/``s0`` equal one; kernel, plain version and bound
+   timed (no single PyTorch call computes either recurrence);
+
+then, for each served model in turn (gemma2-2b, recurrentgemma-2b,
+rwkv6-3b), freeing each before the next:
+
+10. serve — the model at full width (bf16, seeded random weights) through
+   the serve launcher: 8 requests (prompt lengths 16..7999 drawn from
+   seed 0) through 4 slots, max_seq 8192, 32 new tokens each; every
+   request must complete with 32 tokens, and each kernel must have
+   launched once per layer of its kind per prefill (flash_attention per
+   attention layer, rglru_linear_scan per Griffin block, wkv6 per rwkv
+   layer; the counts set to 0 just before and read just after); prints
+   time to first token and prefill/decode tokens/s;
+11. serve vs plain — one long prompt's (longer than the model's local
+   window) last-position prefill logits through the kernels against the plain path (``attention_impl("xla")``
+   and ``recurrence_impl("plain")``), full width: in f32 within rtol =
+   atol = 1e-3; in bf16 the kernels' distance to the f32 logits at most
+   1.25x the plain path's (``serve_vs_plain`` says why the bf16 paths are
+   not held to 3e-2 of each other);
+12. serve profile — one 6000-token prefill and 8 decode steps at 4 slots
+   under ``torch.profiler``: device busy time and share, each kernel's
+   time and share, the heaviest kernels;
+13. engine = greedy — the model at full width in f32: the engine's tokens
    (6 requests through 4 slots) equal per-request greedy prefill + decode.
 
 The second-to-last lines are the kernels JSON and the ``nvidia-smi`` line;
@@ -81,12 +97,29 @@ N_LANES = 4                       # 3 main lanes + ramp, as the sweep
 SWEEP = dict(instances=1024, slots=128, steps=1200, chunk_steps=400)
 SOURCE = "src/repro_torch/kernels/csrc/idm.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+RGLRU_SOURCE = "src/repro_torch/kernels/csrc/rglru.cu"
+WKV6_SOURCE = "src/repro_torch/kernels/csrc/wkv6.cu"
 # dense tensor-core peaks of an H100 SXM (NVIDIA data sheet), by input type
 TENSOR_OPS_PER_S = {"bfloat16": 989e12, "float32": 495e12}  # f32 via TF32
 FLASH_TOL = {"bfloat16": dict(rtol=2e-2, atol=8e-3),
              "float32": dict(rtol=2e-3, atol=2e-4)}
 SERVE = dict(requests=8, slots=4, max_seq=8192, max_new=32, min_prompt=16,
              max_prompt=8000)
+# (arch, prompt length of the serve-vs-plain phase): longer than each local
+# window (gemma2 4096, recurrentgemma 2048), so the window masks keys; the
+# plain WKV6 is a Python loop over the sequence, hence rwkv6's shorter prompt
+SERVE_ARCHS = (("gemma2-2b", 5000), ("recurrentgemma-2b", 3000),
+               ("rwkv6-3b", 2048))
+# the kernel each layer kind's prefill launches
+KERNEL_OF_KIND = {"global": "flash_attention", "local": "flash_attention",
+                  "recurrent": "rglru_linear_scan", "rwkv": "wkv6"}
+# device-kernel names of the hand-written serving kernels in a profile
+PROFILE_NAMES = {"flash_attention": "flash_fwd",
+                 "rglru_linear_scan": "rglru_scan", "wkv6": "wkv6_fwd"}
+RGLRU_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-3),
+             "float32": dict(rtol=1e-5, atol=1e-5)}
+WKV6_TOL = {"bfloat16": dict(rtol=5e-2, atol=5e-2),
+            "float32": dict(rtol=1e-4, atol=1e-4)}
 
 
 T_START = time.perf_counter()
@@ -363,22 +396,27 @@ FLASH_SHAPES = [
         ("gemma2-2b global", 8, 4, 256, 0, 50.0),
         ("gemma2-2b local", 8, 4, 256, 4096, 50.0),
         ("qwen1.5-0.5b", 16, 16, 64, 0, 0.0))
-] + [("gemma2-2b global S=512 q x 20", 1, 512, 8, 4, 256, 0, 50.0, 20.0)]
+] + [("gemma2-2b global S=512 q x 20", 1, 512, 8, 4, 256, 0, 50.0, 20.0)] + [
+    (f"recurrentgemma-2b local S={s}", 1, s, 10, 1, 256, 2048, 0.0, 1.0)
+    for s in (512, 6000)
+]
 
 _FLEX: dict = {}  # the compiled flex_attention and its mods, made once
 
 
 def flex_call(torch, q, k, v, window: int, cap: float):
-    """One PyTorch call that computes the kernel's function with a softcap:
-    compiled ``flex_attention`` with ``cap * tanh(s / cap)`` as its
-    ``score_mod``, the causal (and window) mask as a block mask, and GQA.
-    Timed as the library yardstick only; the port never calls it.
+    """One PyTorch call that computes the kernel's function with a softcap
+    or a window: compiled ``flex_attention`` with ``cap * tanh(s / cap)``
+    as its ``score_mod`` (none at cap 0), the causal (and window) mask as a
+    block mask, and GQA. Timed as the library yardstick only; the port
+    never calls it.
 
-    The cap and the window are 0-d tensors that both mods capture, so the
-    compiled graph does not depend on their values: it is compiled once,
-    and once more when the sequence length first changes (after that the
-    length is dynamic). Called in bf16 only: its Triton compile for f32 at
-    D 256 takes most of the script's time limit on an H100.
+    The cap and the window are 0-d tensors that the mods capture, so the
+    compiled graph does not depend on their values: it is compiled once
+    with a softcap and once without, and once more when the sequence length
+    first changes (after that the length is dynamic). Called in bf16 only:
+    its Triton compile for f32 at D 256 takes most of the script's time
+    limit on an H100.
     """
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -401,15 +439,17 @@ def flex_call(torch, q, k, v, window: int, cap: float):
     block_mask = create_block_mask(_FLEX["mask_mod"], None, None, s, s,
                                    device="cuda")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    return lambda: _FLEX["fn"](qt, kt, vt, score_mod=_FLEX["score_mod"],
+    score_mod = _FLEX["score_mod"] if cap > 0 else None
+    return lambda: _FLEX["fn"](qt, kt, vt, score_mod=score_mod,
                                block_mask=block_mask, enable_gqa=True)
 
 
 def flash_phase(torch, fa, ref) -> list[dict]:
     """``flash_attention`` against ``ref_attention`` on the card, timed
     beside its bound and the one PyTorch call that computes the same
-    function: ``scaled_dot_product_attention`` at softcap 0, compiled
-    ``flex_attention`` with the softcap otherwise."""
+    function: ``scaled_dot_product_attention`` for causal attention without
+    softcap or window, compiled ``flex_attention`` (bf16 only) with a
+    softcap or a window, SDPA with the window as a dense mask in f32."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda")
@@ -444,7 +484,10 @@ def flash_phase(torch, fa, ref) -> list[dict]:
             plain_ms = device_ms(
                 lambda: ref.ref_attention(q, k, v, True, window, cap), 1,
                 trials)
-            if cap == 0.0:
+            if dtype == "bfloat16" and (cap > 0.0 or window > 0):
+                library = "flex_attention"
+                lib = flex_call(torch, q, k, v, window, cap)
+            elif cap == 0.0:
                 library = "sdpa"
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 mask = None
@@ -457,9 +500,6 @@ def flash_phase(torch, fa, ref) -> list[dict]:
                     return F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=mask, is_causal=mask is None,
                         enable_gqa=True)
-            elif dtype == "bfloat16":
-                library = "flex_attention"
-                lib = flex_call(torch, q, k, v, window, cap)
             else:
                 library = lib = None
             library_ms = None
@@ -488,21 +528,143 @@ def flash_phase(torch, fa, ref) -> list[dict]:
     return results
 
 
-def serve_phase(torch, fa) -> dict:
-    """gemma2-2b at full width through the serve launcher."""
+def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
+    """``rglru_linear_scan`` and ``wkv6`` against their plain versions on the
+    card at recurrentgemma-2b's and rwkv6-3b's widths, two chunks against
+    one, and each timed beside its plain version and its bound (bytes read
+    once and written once over 3.35 TB/s; the recurrence's f32 operations
+    over 67 TFLOP/s: 2 per RG-LRU element; per WKV6 step, 5 per state entry
+    (the read-out ``r·S`` 2, the update ``w·S + k·v`` 3) and the bonus
+    ``(Σ_k r_k u_k k_k) v`` at 3 per key and 2 per value)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    rg_results = []
+    w = 2560
+    for b in (1, 4):
+        for s in (37, 512, 6000):
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                a = torch.rand((b, s, w), generator=gen, device="cuda") \
+                    * 0.299 + 0.7
+                x = torch.randn((b, s, w), generator=gen, device="cuda").to(dt)
+                h0 = torch.randn((b, w), generator=gen, device="cuda")
+                ys, hf = rg.rglru_linear_scan(a, x, h0)
+                want_ys, want_h = ref.ref_rglru(a, x, h0)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(ys.float(), want_ys,
+                                           **RGLRU_TOL[dtype])
+                torch.testing.assert_close(hf, want_h, rtol=1e-4, atol=1e-4)
+                err = max(float((ys.float() - want_ys).abs().max()),
+                          float((hf - want_h).abs().max()))
+                trials = 5 if s > 1024 else 21
+                ms = device_ms(lambda: rg.rglru_linear_scan(a, x, h0), 10,
+                               trials)
+                plain_ms = device_ms(lambda: ref.ref_rglru(a, x, h0), 1, 5)
+                bound_ms, bound_by = bound(
+                    b * s * w * (4 + 2 * x.element_size()) + 2 * b * w * 4,
+                    2 * b * s * w)
+                rg_results.append(dict(B=b, S=s, W=w, dtype=dtype,
+                                       max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by))
+                log(f"rglru_linear_scan B={b} S={s} W={w} {dtype}: max |err| "
+                    f"{err:.3g} (tol {RGLRU_TOL[dtype]}, h_final 1e-4); "
+                    f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+                    f"{bound_ms:.5f} ms ({bound_by})")
+    a = torch.rand((1, 512, 2560), generator=gen, device="cuda") * 0.2 + 0.8
+    x = torch.randn((1, 512, 2560), generator=gen, device="cuda")
+    h0 = torch.zeros((1, 2560), device="cuda")
+    y_all, h_all = rg.rglru_linear_scan(a, x, h0)
+    y1, h1 = rg.rglru_linear_scan(a[:, :200].contiguous(),
+                                  x[:, :200].contiguous(), h0)
+    y2, h2 = rg.rglru_linear_scan(a[:, 200:].contiguous(),
+                                  x[:, 200:].contiguous(), h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_all, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h2, h_all, rtol=1e-5, atol=1e-5)
+    log("rglru_linear_scan: S 512 in chunks of 200 and 312 through h0 equals "
+        "one scan (1e-5)")
+
+    rw_results = []
+    b, h, kd, vd = 1, 40, 64, 64
+    for s in (37, 512, 4096, 6000):
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            r, k = (torch.randn((b, s, h, kd), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            v = torch.randn((b, s, h, vd), generator=gen, device="cuda").to(dt)
+            w = torch.rand((b, s, h, kd), generator=gen, device="cuda") \
+                * 0.199 + 0.8
+            u = torch.randn((h, kd), generator=gen, device="cuda")
+            s0 = torch.randn((b, h, kd, vd), generator=gen, device="cuda")
+            args = (r, k, v, w, u, s0)
+            y, sf = rw.wkv6(*args)
+            want_y, want_s = ref.ref_wkv6(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y.float(), want_y, **WKV6_TOL[dtype])
+            torch.testing.assert_close(sf, want_s, rtol=1e-3, atol=1e-3)
+            err = max(float((y.float() - want_y).abs().max()),
+                      float((sf - want_s).abs().max()))
+            trials = 5 if s > 1024 else 21
+            ms = device_ms(lambda: rw.wkv6(*args), 2 if s > 1024 else 10,
+                           trials)
+            plain_ms = device_ms(lambda: ref.ref_wkv6(*args), 1, 5)
+            elt = v.element_size()
+            bytes_moved = (b * s * h * (kd * (2 * elt + 4) + 2 * vd * elt)
+                           + h * kd * 4 + 2 * b * h * kd * vd * 4)
+            bound_ms, bound_by = bound(
+                bytes_moved, b * s * h * (5 * kd * vd + 3 * kd + 2 * vd))
+            rw_results.append(dict(B=b, S=s, H=h, K=kd, V=vd, dtype=dtype,
+                                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by))
+            log(f"wkv6 B={b} S={s} H={h} K={kd} V={vd} {dtype}: max |err| "
+                f"{err:.3g} (tol {WKV6_TOL[dtype]}, state 1e-3); kernel "
+                f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} "
+                f"ms ({bound_by})")
+            del r, k, v, w, args, y, want_y
+    r, k, v = (torch.randn((1, 512, h, kd), generator=gen, device="cuda")
+               for _ in range(3))
+    w = torch.rand((1, 512, h, kd), generator=gen, device="cuda") * 0.2 + 0.8
+    s0 = torch.zeros((1, h, kd, vd), device="cuda")
+    y_all, s_all = rw.wkv6(r, k, v, w, u, s0)
+    y1, s1 = rw.wkv6(*(z[:, :200].contiguous() for z in (r, k, v, w)), u, s0)
+    y2, s2 = rw.wkv6(*(z[:, 200:].contiguous() for z in (r, k, v, w)), u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_all, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(s2, s_all, rtol=1e-4, atol=1e-4)
+    log("wkv6: S 512 in chunks of 200 and 312 through s0 equals one scan "
+        "(1e-4)")
+    return rg_results, rw_results
+
+
+def kernels_per_prefill(cfg) -> dict[str, int]:
+    """How many times one prefill launches each serving kernel: once per
+    layer of the kind that calls it."""
+    from repro_torch.models.lm import layer_plan
+
+    counts = {name: 0 for name in PROFILE_NAMES}
+    for kind, _, _ in layer_plan(cfg):
+        counts[KERNEL_OF_KIND[kind]] += 1
+    return counts
+
+
+def serve_phase(torch, arch: str, counters) -> dict:
+    """``arch`` at full width through the serve launcher; the launch counts
+    of every serving kernel (``counters``: the wrapper modules) are set to 0
+    just before and read just after."""
     from repro_torch.launch import serve as serve_launcher
 
-    argv = ["--arch", "gemma2-2b", "--full-width", "--seed", "0",
-            "--device", "cuda"]
+    argv = ["--arch", arch, "--full-width", "--seed", "0", "--device", "cuda"]
     for key, val in SERVE.items():
         argv += ["--" + key.replace("_", "-"), str(val)]
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
+    for mod in counters:
+        mod.reset_launches()
     res = serve_launcher.main(argv)
-    launches = fa.launches["flash_attention"]
+    launches = {name: n for mod in counters for name, n in mod.launches.items()}
     cfg, st = res["model"].cfg, res["stats"]
     lens = [len(p) for p in res["prompts"]]
-    if max(lens) <= cfg.window:
+    if "local" in cfg.layer_pattern and max(lens) <= cfg.window:
         raise AssertionError(f"no prompt longer than the window: {lens}")
     if sorted(res["results"]) != list(range(SERVE["requests"])):
         raise AssertionError(f"requests completed: {sorted(res['results'])}")
@@ -510,13 +672,15 @@ def serve_phase(torch, fa) -> dict:
         if len(toks) != SERVE["max_new"] or not all(
                 0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"request {rid} returned {toks}")
-    if st["prefills"] != SERVE["requests"] or \
-            launches != cfg.n_layers * st["prefills"]:
+    per = kernels_per_prefill(cfg)
+    want = {name: n * st["prefills"] for name, n in per.items()}
+    if st["prefills"] != SERVE["requests"] or launches != want:
         raise AssertionError(
-            f"flash_attention launched {launches} times for "
-            f"{st['prefills']} prefills, expected {cfg.n_layers} per prefill")
+            f"{arch}: kernels launched {launches} for {st['prefills']} "
+            f"prefills, expected {want} ({per} per prefill)")
     ttft = sorted(st["first_token_s"].values())
-    out = dict(prompt_lens=lens, launches=launches,
+    out = dict(arch=arch, prompt_lens=lens, launches=launches,
+               launches_per_prefill=per,
                ttft_median_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
                prefill_tokens=st["prefill_tokens"], prefill_s=st["prefill_s"],
                prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
@@ -525,16 +689,17 @@ def serve_phase(torch, fa) -> dict:
                decode_tokens_per_s=st["decode_tokens"] / st["decode_s"],
                wall_s=res["seconds"],
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"serve: gemma2-2b full width bf16, {SERVE['requests']} requests "
+    counted = ", ".join(f"{name} {n} = {per[name]} x {st['prefills']}"
+                        for name, n in launches.items() if per[name])
+    log(f"serve: {arch} full width bf16, {SERVE['requests']} requests "
         f"through {SERVE['slots']} slots, prompt lengths {lens}, "
         f"{SERVE['max_new']} new tokens each: wall {out['wall_s']:.3f} s; "
         f"time to first token median {out['ttft_median_s']:.4f} s, max "
         f"{out['ttft_max_s']:.4f} s; prefill {out['prefill_tokens']} tokens, "
         f"{out['prefill_tokens_per_s']:.1f} tokens/s; decode "
         f"{out['decode_tokens']} tokens in {out['decode_steps']} steps, "
-        f"{out['decode_tokens_per_s']:.1f} tokens/s; flash_attention "
-        f"launches {launches} = {cfg.n_layers} x {st['prefills']} prefills; "
-        f"peak memory {out['peak_gb']:.2f} GB")
+        f"{out['decode_tokens_per_s']:.1f} tokens/s; launches {counted} "
+        f"prefills; peak memory {out['peak_gb']:.2f} GB")
     out["model"], out["params"] = res["model"], res["params"]
     return out
 
@@ -542,7 +707,8 @@ def serve_phase(torch, fa) -> dict:
 def serve_profile(torch, model, params, n: int = 6000, steps: int = 8) -> dict:
     """Where serving's time goes: one n-token prefill and ``steps`` decode
     steps at 4 live slots under ``torch.profiler``: wall time, device busy
-    time, the flash kernel's share and the heaviest kernels."""
+    time, each hand-written kernel's time and share, the heaviest
+    kernels."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -573,41 +739,51 @@ def serve_profile(torch, model, params, n: int = 6000, steps: int = 8) -> dict:
                 wall_ms = (time.perf_counter() - t0) * 1e3
             events = device_events(prof)
             busy_ms = sum(e[1] for e in events) / 1e3
-            flash_ms = sum(e[1] for e in events if "flash_fwd" in e[0]) / 1e3
             per = steps if phase == "decode" else 1
+            kernel_ms = {
+                name: sum(e[1] for e in events if sym in e[0]) / 1e3 / per
+                for name, sym in PROFILE_NAMES.items()}
             out[phase] = dict(
                 wall_ms=wall_ms / per, device_busy_ms=busy_ms / per,
                 busy_share=busy_ms / wall_ms if wall_ms else None,
-                flash_ms=flash_ms / per,
+                kernel_ms=kernel_ms,
+                kernel_share={k: v * per / busy_ms if busy_ms else None
+                              for k, v in kernel_ms.items()},
                 device_kernels=sum(e[2] for e in events) / per,
                 top=[(k[:60], us / 1e3 / per) for k, us, _ in events[:6]])
             o = out[phase]
             what = (f"one {n}-token prefill" if phase == "prefill" else
                     f"per decode step at 4 slots (cache {n + steps + 1})")
-            log(f"serve profile, {what}: wall {o['wall_ms']:.3f} ms under the "
-                f"profiler, device busy {o['device_busy_ms']:.3f} ms "
-                f"({100 * (o['busy_share'] or 0):.2f}%), flash_attention "
-                f"{o['flash_ms']:.3f} ms, {o['device_kernels']:.0f} device "
-                f"kernels")
+            mine = ", ".join(
+                f"{k} {v:.3f} ms ({100 * (o['kernel_share'][k] or 0):.2f}%)"
+                for k, v in kernel_ms.items() if v)
+            log(f"serve profile, {model.cfg.name}, {what}: wall "
+                f"{o['wall_ms']:.3f} ms under the profiler, device busy "
+                f"{o['device_busy_ms']:.3f} ms "
+                f"({100 * (o['busy_share'] or 0):.2f}%), "
+                f"{mine or 'no hand-written kernel'}, "
+                f"{o['device_kernels']:.0f} device kernels")
             for name, ms in o["top"]:
                 log(f"serve profile:   {ms:.4f} ms  {name}")
     return out
 
 
-def serve_vs_plain(torch, model, params, n: int = 5000):
-    """Last-position prefill logits of one long prompt through the kernel
-    and through the plain attention path (``attention_impl("xla")``), at
-    full width, in bf16 and in f32 (the same weights, widened exactly).
+def serve_vs_plain(torch, model, params, n: int):
+    """Last-position prefill logits of one ``n``-token prompt through the
+    kernels and through the plain path (``attention_impl("xla")`` and
+    ``recurrence_impl("plain")``), at full width, in bf16 and in f32 (the
+    same weights, widened exactly).
 
     Checks: (1) in f32 the two paths agree within rtol = atol = 1e-3 (the
-    same f32 arithmetic, summed in other orders); (2) in bf16 the kernel's
+    same f32 arithmetic, summed in other orders); (2) in bf16 the kernels'
     logits are no further from the f32 logits than 1.25x the plain path's
-    (the kernel is at least as accurate as the reference's algorithm). The
-    bf16 kernel-vs-plain distance is printed against rtol = atol = 3e-2,
-    the reduced-model bound of ``tests/test_kernels_integration.py``, but
-    not enforced: over 26 layers at d_model 2304 two bf16 paths that round
-    at other places drift further apart than over 4 layers at d_model 64
-    (PERF.md, PR 12). Returns the f32 model and weights for the next phase.
+    (the kernels are at least as accurate as the reference's algorithm).
+    The bf16 kernel-vs-plain distance is printed against rtol = atol =
+    3e-2, the reduced-model bound of ``tests/test_kernels_integration.py``,
+    but not enforced: over 26 layers at d_model 2304 two bf16 paths that
+    round at other places drift further apart than over 4 layers at
+    d_model 64 (PERF.md). Returns the f32 model and weights for the
+    next phase.
     """
     import dataclasses
 
@@ -615,8 +791,12 @@ def serve_vs_plain(torch, model, params, n: int = 5000):
 
     from repro_torch.models.attention import attention_impl
     from repro_torch.models.lm import LM
+    from repro_torch.models.recurrent import recurrence_impl
     from repro_torch.models.registry import build_model
 
+    if "local" in model.cfg.layer_pattern and n <= model.cfg.window:
+        raise AssertionError(f"prompt of {n} within the window "
+                             f"{model.cfg.window}: no key is masked by it")
     toks = np.random.default_rng(1).integers(0, model.cfg.vocab_size, (1, n))
     batch = {"tokens": torch.from_numpy(toks).cuda()}
     model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"),
@@ -628,7 +808,7 @@ def serve_vs_plain(torch, model, params, n: int = 5000):
         for name, m, p in (("bf16", model, params), ("f32", model32,
                                                      params32)):
             logits[name, "kernel"], _ = m.prefill(p, m.init_cache(1, n), batch)
-            with attention_impl("xla"):
+            with attention_impl("xla"), recurrence_impl("plain"):
                 logits[name, "plain"], _ = m.prefill(p, m.init_cache(1, n),
                                                      batch)
     truth = logits["f32", "plain"]
@@ -646,7 +826,8 @@ def serve_vs_plain(torch, model, params, n: int = 5000):
                bf16_plain_vs_f32=dist(plain, truth),
                same_argmax=bool(kern.argmax() == plain.argmax()
                                 == truth.argmax()))
-    log(f"serve vs plain: {n}-token prompt, last-position logits (max "
+    log(f"serve vs plain: {model.cfg.name}, {n}-token prompt, last-position "
+        f"logits (max "
         f"|logit| {out['max_abs_logit']:.4g}): f32 kernel vs plain max |err| "
         f"{out['f32_kernel_vs_plain']:.4g} (tol rtol = atol = 1e-3); bf16 "
         f"kernel vs f32 {out['bf16_kernel_vs_f32']:.4g}, bf16 plain vs f32 "
@@ -657,13 +838,14 @@ def serve_vs_plain(torch, model, params, n: int = 5000):
     torch.testing.assert_close(logits["f32", "kernel"], truth, rtol=1e-3,
                                atol=1e-3)
     if out["bf16_kernel_vs_f32"] > 1.25 * out["bf16_plain_vs_f32"]:
-        raise AssertionError("the bf16 kernel path is further from the f32 "
-                             "logits than 1.25x the bf16 plain path")
+        raise AssertionError(f"{model.cfg.name}: the bf16 kernel path is "
+                             "further from the f32 logits than 1.25x the "
+                             "bf16 plain path")
     return out, model32, params32
 
 
 def engine_vs_greedy(torch, model, params) -> dict:
-    """gemma2-2b at full width in f32: the engine's tokens (more requests
+    """The model at full width in f32: the engine's tokens (more requests
     than slots) equal per-request greedy prefill and decode."""
     import numpy as np
 
@@ -708,7 +890,7 @@ def engine_vs_greedy(torch, model, params) -> dict:
                 f"there is {marg[step]:.3g}")
     out = dict(requests=len(prompts), slots=4, new_tokens=n_new,
                min_margin=min(min(m) for m in margins))
-    log(f"engine = greedy: gemma2-2b full width f32, {len(prompts)} requests "
+    log(f"engine = greedy: {cfg.name} full width f32, {len(prompts)} requests "
         f"through 4 slots, {n_new} tokens each: equal (smallest top-2 logit "
         f"margin {out['min_margin']:.3g})")
     return out
@@ -736,6 +918,8 @@ def main() -> None:
     from repro_torch.convert import to_numpy
     from repro_torch.kernels import build, idm, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rwkv6 as rw
     from repro_torch.launch import sweep as launcher
 
     # 1. card
@@ -750,10 +934,10 @@ def main() -> None:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(build.load, ("idm", "flash_attention")))
-    log(f"built {SOURCE} and {FLASH_SOURCE} for sm_90a in "
-        f"{time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(build.load, ("idm", "flash_attention", "rglru", "wkv6")))
+    log(f"built {SOURCE}, {FLASH_SOURCE}, {RGLRU_SOURCE} and {WKV6_SOURCE} "
+        f"for sm_90a in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions
     nb_results, idm_results = kernel_phase(torch, idm, ref)
@@ -853,36 +1037,59 @@ def main() -> None:
     # 8. flash attention against its plain version
     fl_results = flash_phase(torch, fa, ref)
 
-    # 9. gemma2-2b at full width through the serve launcher
-    served = serve_phase(torch, fa)
+    # 9. the recurrence kernels against their plain versions
+    rg_results, rw_results = recurrence_phase(torch, rg, rw, ref)
 
-    model, params = served.pop("model"), served.pop("params")
+    # 10-13 for each served model: serve, serve vs plain, profile,
+    # engine = greedy; each model is freed before the next
+    served = {}
+    for arch, plain_n in SERVE_ARCHS:
+        out = serve_phase(torch, arch, (fa, rg, rw))
+        model, params = out.pop("model"), out.pop("params")
+        out["vs_plain"], model32, params32 = serve_vs_plain(
+            torch, model, params, plain_n)
+        out["profile"] = serve_profile(torch, model, params)
+        del model, params
+        torch.cuda.empty_cache()
+        out["engine_vs_greedy"] = engine_vs_greedy(torch, model32, params32)
+        del model32, params32
+        torch.cuda.empty_cache()
+        served[arch] = out
 
-    # 10. the kernel against the plain attention path, end to end
-    served["vs_plain"], model32, params32 = serve_vs_plain(
-        torch, model, params)
-
-    # 11. where a prefill's and a decode step's time goes
-    served["profile"] = serve_profile(torch, model, params)
-    del model, params
-    torch.cuda.empty_cache()
-
-    # 12. the engine against per-request greedy decoding, f32
-    served["engine_vs_greedy"] = engine_vs_greedy(torch, model32,
-                                                  params32)
+    def launched(name):
+        return sum(out["launches"][name] for out in served.values())
 
     main_fl = next(r for r in fl_results if r["dtype"] == "bfloat16" and
                    r["S"] == 6000 and r["window"] == 0 and r["D"] == 256)
+    main_rg = next(r for r in rg_results if r["dtype"] == "float32" and
+                   r["S"] == 6000 and r["B"] == 1)
+    main_rw = next(r for r in rw_results if r["dtype"] == "float32" and
+                   r["S"] == 6000)
     kernels.append(dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
         replaces="src/repro/kernels/flash_attention.py:135",
-        launches=served["launches"],
+        launches=launched("flash_attention"),
+        launches_by_path={arch: out["launches"]["flash_attention"]
+                          for arch, out in served.items()},
         max_abs_err=max(r["max_abs_err"] for r in fl_results),
         ms=main_fl["ms"], plain_ms=main_fl["plain_ms"],
         bound_ms=main_fl["bound_ms"], bound_by=main_fl["bound_by"],
         library=main_fl["library"], library_ms=main_fl["library_ms"],
         shapes=fl_results,
-        serve=served))
+        serve=served["gemma2-2b"]))
+    for name, source, replaces, main_row, rows, arch in (
+            ("rglru_linear_scan", RGLRU_SOURCE,
+             "src/repro/kernels/rglru.py:74", main_rg, rg_results,
+             "recurrentgemma-2b"),
+            ("wkv6", WKV6_SOURCE, "src/repro/kernels/rwkv6.py:79", main_rw,
+             rw_results, "rwkv6-3b")):
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launched(name),
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=None, shapes=rows, serve=served[arch]))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

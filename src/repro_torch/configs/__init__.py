@@ -2,6 +2,11 @@
 registry; the other architectures of the reference come with the slices
 that port their layer kinds (ROADMAP queue 1)."""
 
-from repro_torch.configs import gemma2_2b, qwen15_05b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    gemma2_2b,
+    qwen15_05b,
+    recurrentgemma_2b,
+    rwkv6_3b,
+)
 
-ALL_ARCHS = ["gemma2-2b", "qwen1.5-0.5b"]
+ALL_ARCHS = ["gemma2-2b", "qwen1.5-0.5b", "recurrentgemma-2b", "rwkv6-3b"]

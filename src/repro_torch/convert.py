@@ -104,8 +104,12 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device) -> LM:
 
     The reference's scanned stack ``blocks/l{j}`` (leaves ``[n_blocks,
     ...]``) is unstacked into layers ``i * len(pattern) + j`` after the
-    ``head_layers``, followed by the ``tail_layers``. Values are cast to
-    ``cfg.dtype``; every parameter must be present and no other.
+    ``head_layers``, followed by the ``tail_layers`` (recurrentgemma's
+    last two Griffin blocks). Values are cast to each parameter's type:
+    ``cfg.dtype``, except the leaves the reference keeps in f32 in any
+    model (the RG-LRU's ``mixer.lru.a_param``; the time mix's ``w_base``,
+    ``u``, ``ln_x_scale`` and ``ln_x_bias``). Every parameter must be
+    present and no other.
     """
     device = resolve_device(device)
     plan = stack_plan(cfg)

@@ -1,4 +1,6 @@
-"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+"""Build the hand-written CUDA kernels at first use and load them with
+ctypes; check the tensors a wrapper hands them and the code a launch
+returns.
 
 A ``csrc/<name>.cu`` source is compiled by ``nvcc`` for Hopper into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
@@ -22,6 +24,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -70,3 +74,37 @@ def load(name: str) -> ctypes.CDLL:
             _compile(name, path)
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def symbol(lib: str, name: str, argtypes):
+    """The C entry ``name`` of ``csrc/<lib>.cu``, built and loaded, with its
+    argument types set and an ``int`` (a CUDA error code) as its result
+    (ctypes caches the attribute, so its signature is set once)."""
+    fn = getattr(load(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launched(name: str, err: int, launches: dict[str, int]) -> None:
+    """Raise if the launch of kernel ``name`` returned CUDA error ``err``;
+    else add one to ``launches[name]``."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    launches[name] += 1
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+                 device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's C interface takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

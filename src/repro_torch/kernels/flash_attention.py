@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.build import check_tensor, launched, symbol
 from repro_torch.kernels.ref import ref_attention
 
 #: launch count; only a real kernel launch increments it
@@ -33,18 +34,7 @@ _ARGTYPES = [_P] * 4 + [_I] * 9 + [_F, _F, _P]
 
 def reset_launches() -> None:
     """Set the launch count to 0."""
-    for name in launches:
-        launches[name] = 0
-
-
-def _fn():
-    from repro_torch.kernels.build import load
-
-    fn = load("flash_attention").flash_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+    launches.update(dict.fromkeys(launches, 0))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -76,24 +66,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          "and 65535 heads")
     for name, t, shape in (("q", q, (b, sq, h, d)), ("k", k, (b, sk, kh, d)),
                            ("v", v, (b, sk, kh, d))):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} must be {q.dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        check_tensor(name, t, q.dtype, shape, q.device)
     out = torch.empty_like(q)
-    fn = _fn()
+    fn = symbol("flash_attention", "flash_attention_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  int(q.dtype == torch.bfloat16), b, sq, sk, h, kh, d,
                  int(causal), int(window), float(softcap), float(scale),
                  torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed with CUDA error "
-                           f"{err}")
-    launches["flash_attention"] += 1
+    launched("flash_attention", err, launches)
     return out

@@ -21,6 +21,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.build import check_tensor as _check
+from repro_torch.kernels.build import launched, symbol
 from repro_torch.kernels.ref import ref_idm_accel, ref_neighbor_mq
 
 #: launch counts per kernel; only a real kernel launch increments them
@@ -33,38 +35,7 @@ _F = ctypes.c_float
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    for k in launches:
-        launches[k] = 0
-
-
-def _fn(name: str, argtypes):
-    """The C entry ``name`` of ``csrc/idm.cu`` (ctypes caches the attribute,
-    so its signature is set once)."""
-    from repro_torch.kernels.build import load
-
-    fn = getattr(load("idm"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _launched(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    launches[name] += 1
+    launches.update(dict.fromkeys(launches, 0))
 
 
 def neighbor_kernel(pos, lane, active, query_lanes, *, veh_len: float = 4.5):
@@ -96,7 +67,7 @@ def neighbor_kernel(pos, lane, active, query_lanes, *, veh_len: float = 4.5):
     fi = torch.empty(shape, dtype=torch.int32, device=dev)
     fg = torch.empty(shape, dtype=torch.float32, device=dev)
     fh = torch.empty(shape, dtype=torch.bool, device=dev)
-    fn = _fn("neighbor_mq_launch",
+    fn = symbol("idm", "neighbor_mq_launch",
              [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P])
     with torch.cuda.device(dev):   # the runtime launches on its current card
         err = fn(pos.data_ptr(), lane.data_ptr(), active.data_ptr(),
@@ -104,7 +75,7 @@ def neighbor_kernel(pos, lane, active, query_lanes, *, veh_len: float = 4.5):
                  li.data_ptr(), lg.data_ptr(), lh.data_ptr(),
                  fi.data_ptr(), fg.data_ptr(), fh.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
-    _launched("neighbor_kernel", err)
+    launched("neighbor_kernel", err, launches)
     return li, lg, lh, fi, fg, fh
 
 
@@ -132,12 +103,12 @@ def idm_accel_kernel(pos, vel, lane, active, v0, T, a_max, b_comf, s0, *,
     if b > 65535:
         raise ValueError("idm_accel_kernel takes at most 65535 instances")
     acc = torch.empty((b, n), dtype=torch.float32, device=dev)
-    fn = _fn("idm_accel_launch", [_P] * 9 + [_I, _I, _F, _P, _P])
+    fn = symbol("idm", "idm_accel_launch", [_P] * 9 + [_I, _I, _F, _P, _P])
     with torch.cuda.device(dev):
         err = fn(pos.data_ptr(), vel.data_ptr(), lane.data_ptr(),
                  active.data_ptr(), v0.data_ptr(), T.data_ptr(),
                  a_max.data_ptr(), b_comf.data_ptr(), s0.data_ptr(), b, n,
                  veh_len, acc.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
-    _launched("idm_accel_kernel", err)
+    launched("idm_accel_kernel", err, launches)
     return acc

@@ -18,6 +18,13 @@ per-instance functions under ``vmap`` become one batched call here.
     ref_attention``): GQA attention with end-aligned causal masking, a
     sliding window and the tanh logit softcap; scores and softmax in f32,
     the probabilities cast to ``v``'s type before the product with ``v``.
+``ref_rglru``
+    The contract of ``rglru_linear_scan`` (``repro/kernels/ref.py::
+    ref_rglru``): ``h_t = a_t * h_{t-1} + x_t``, one step at a time in f32.
+``ref_wkv6``
+    The contract of ``wkv6`` (``repro/kernels/ref.py::ref_wkv6``): the
+    WKV6 recurrence, one step at a time over the f32 ``[B, H, K, V]``
+    state.
 """
 
 from __future__ import annotations
@@ -122,3 +129,32 @@ def ref_attention(q, k, v, causal=True, window=0, softcap=0.0, scale=None):
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
     return o.reshape(b, sq, h, d)
+
+
+def ref_rglru(a, x, h0):
+    """``a`` (decay), ``x`` ``[B, S, W]``, ``h0 [B, W]`` → ``(ys [B, S, W]
+    f32, h_final [B, W] f32)`` with ``h_t = a_t * h_{t-1} + x_t``."""
+    af, xf = a.float(), x.float()
+    h = h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        h = af[:, t] * h + xf[:, t]
+        ys.append(h)
+    ys = torch.stack(ys, dim=1) if ys else xf.new_zeros(xf.shape)
+    return ys, h
+
+
+def ref_wkv6(r, k, v, w, u, s0):
+    """``r``, ``k``, ``w`` ``[B, S, H, K]``, ``v [B, S, H, V]``, ``u [H, K]``,
+    ``s0 [B, H, K, V]`` → ``(y [B, S, H, V] f32, S_final [B, H, K, V] f32)``:
+    ``y_t = r_tᵀ(S + u⊙k_t v_tᵀ)``, then ``S ← w_t⊙S + k_t v_tᵀ``."""
+    rf, kf, vf, wf = (z.float() for z in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    state = s0.float()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", kf[:, t], vf[:, t])
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv))
+        state = wf[:, t, :, :, None] * state + kv
+    y = torch.stack(ys, dim=1) if ys else vf.new_zeros(vf.shape)
+    return y, state

@@ -1,13 +1,15 @@
-"""Transformer blocks: init, apply, cache init, prefill and decode for the
-attention layer kinds (port of ``repro/models/blocks.py``).
+"""Blocks: init, apply, cache init, prefill and decode for every layer kind
+the port serves (port of ``repro/models/blocks.py``).
 
 Layer kinds (``ModelConfig.layer_pattern`` entries):
-- "global" — full causal attention + FFN
-- "local"  — sliding-window attention + FFN
+- "global"    — full causal attention + FFN
+- "local"     — sliding-window attention + FFN
+- "recurrent" — Griffin RG-LRU block + FFN
+- "rwkv"      — RWKV-6 time mix + channel mix (no FFN, no post-norms)
 
 All blocks are pre-norm residual; gemma2 additionally applies post-norms
-(``cfg.post_norms``). The "recurrent" and "rwkv" kinds, MLA and MoE come
-with their families (ROADMAP queue 1) and raise ``NotImplementedError``.
+(``cfg.post_norms``). Caches are written in place. MLA and MoE come with
+their families (ROADMAP queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,16 +27,29 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import Norm, norm
 from repro_torch.models.ffn import FFN, ffn_apply
+from repro_torch.models.recurrent import (
+    ChannelMix,
+    RecurrentBlock,
+    TimeMix,
+    recurrent_block_apply,
+    recurrent_block_seq,
+    recurrent_block_step,
+    recurrent_cache_init,
+    rwkv_cache_init,
+    rwkv_channel_mix_apply,
+    rwkv_channel_mix_step,
+    rwkv_time_mix_apply,
+    rwkv_time_mix_seq,
+    rwkv_time_mix_step,
+)
 
-ATTENTION_KINDS = ("global", "local")
+KINDS = ("global", "local", "recurrent", "rwkv")
 
 
 def _check_supported(cfg: ModelConfig, kind: str, moe: bool) -> None:
-    if kind not in ATTENTION_KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet: the recurrent and rwkv "
-            "kinds come with their families (ROADMAP queue 1, item "
-            "'recurrentgemma/rwkv6')")
+    if kind not in KINDS:
+        raise ValueError(f"unknown layer kind {kind!r}; expected one of "
+                         f"{KINDS}")
     if cfg.use_mla or moe:
         raise NotImplementedError(
             "MLA and MoE layers are not ported yet (ROADMAP queue 1, item "
@@ -42,8 +57,10 @@ def _check_supported(cfg: ModelConfig, kind: str, moe: bool) -> None:
 
 
 class Block(nn.Module):
-    """One layer's parameters: ``norm1``, ``mixer``, ``norm2``, ``ffn`` and,
-    with ``cfg.post_norms``, ``post_norm1``/``post_norm2``."""
+    """One layer's parameters: ``norm1``, ``norm2`` and either
+    ``time_mix``/``channel_mix`` (rwkv) or ``mixer`` (attention or the
+    Griffin block), ``ffn`` and, with ``cfg.post_norms``,
+    ``post_norm1``/``post_norm2``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device, moe: bool = False,
                  d_ff: int | None = None) -> None:
@@ -53,18 +70,23 @@ class Block(nn.Module):
         d = cfg.d_model
         self.norm1 = Norm(cfg, d, device)
         self.norm2 = Norm(cfg, d, device)
-        self.mixer = Attention(cfg, device)
+        if kind == "rwkv":
+            self.time_mix = TimeMix(cfg, device)
+            self.channel_mix = ChannelMix(cfg, device)
+            return
+        self.mixer = (RecurrentBlock(cfg, device) if kind == "recurrent"
+                      else Attention(cfg, device))
         self.ffn = FFN(cfg, device, d_ff=d_ff)
         if cfg.post_norms:
             self.post_norm1 = Norm(cfg, d, device)
             self.post_norm2 = Norm(cfg, d, device)
 
     def reset_parameters(self, generator) -> None:
-        self.mixer.reset_parameters(generator)
-        self.ffn.reset_parameters(generator)
         for m in self.children():
             if isinstance(m, Norm):
                 m.reset_parameters()
+            else:
+                m.reset_parameters(generator)
 
 
 def block_init(cfg: ModelConfig, kind: str, generator, device,
@@ -81,40 +103,103 @@ def _residual(cfg: ModelConfig, p: Block, x, sub, post: str):
     return x + sub
 
 
+def _ffn_half(cfg: ModelConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
+    h = norm(cfg, p.norm2, x)
+    return _residual(cfg, p, x, ffn_apply(cfg, p.ffn, h), "post_norm2")
+
+
 def block_apply(cfg: ModelConfig, p: Block, x: torch.Tensor,
                 positions: torch.Tensor, causal: bool = True):
     """Returns (x, moe_aux); the aux loss is 0 without MoE."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm(cfg, p.norm1, x)
-    sub = attn_apply(cfg, p.mixer, h, positions, p.kind, causal=causal)
+    if p.kind == "rwkv":
+        x = x + rwkv_time_mix_apply(cfg, p.time_mix, h)
+        h = norm(cfg, p.norm2, x)
+        return x + rwkv_channel_mix_apply(cfg, p.channel_mix, h), aux
+    if p.kind == "recurrent":
+        sub = recurrent_block_apply(cfg, p.mixer, h)
+    else:
+        sub = attn_apply(cfg, p.mixer, h, positions, p.kind, causal=causal)
     x = _residual(cfg, p, x, sub, "post_norm1")
-    h = norm(cfg, p.norm2, x)
-    x = _residual(cfg, p, x, ffn_apply(cfg, p.ffn, h), "post_norm2")
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _ffn_half(cfg, p, x), aux
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      device) -> dict:
     _check_supported(cfg, kind, False)
+    if kind == "rwkv":
+        return rwkv_cache_init(cfg, batch, device)
+    if kind == "recurrent":
+        return recurrent_cache_init(cfg, batch, device)
     return kv_cache_init(cfg, batch, max_seq, kind, device)
 
 
 def block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor,
                   positions: torch.Tensor, cache: dict):
-    """Full-seq compute + cache fill (in place)."""
+    """Full-seq compute + cache fill (in place). Recurrent kinds leave their
+    final state in the cache."""
     h = norm(cfg, p.norm1, x)
-    sub, cache = attn_prefill(cfg, p.mixer, h, positions, cache, p.kind)
+    if p.kind == "rwkv":
+        y, s_final, w = rwkv_time_mix_seq(cfg, p.time_mix, h)
+        x = x + y
+        h2 = norm(cfg, p.norm2, x)
+        x = x + rwkv_channel_mix_apply(cfg, p.channel_mix, h2)
+        return x, _rwkv_state_from_prefill(cache, s_final, w, h, h2)
+    if p.kind == "recurrent":
+        sub, cache = _recurrent_prefill(cfg, p.mixer, h, cache)
+    else:
+        sub, cache = attn_prefill(cfg, p.mixer, h, positions, cache, p.kind)
     x = _residual(cfg, p, x, sub, "post_norm1")
-    h = norm(cfg, p.norm2, x)
-    x = _residual(cfg, p, x, ffn_apply(cfg, p.ffn, h), "post_norm2")
-    return x, cache
+    return _ffn_half(cfg, p, x), cache
 
 
 def block_decode(cfg: ModelConfig, p: Block, x: torch.Tensor,
                  pos: torch.Tensor, cache: dict):
     """One token: x [B, 1, D], pos [B]; the cache is written in place."""
     h = norm(cfg, p.norm1, x)
-    sub, cache = attn_decode(cfg, p.mixer, h, pos, cache, p.kind)
+    if p.kind == "rwkv":
+        y, cache = rwkv_time_mix_step(cfg, p.time_mix, h, cache)
+        x = x + y
+        h = norm(cfg, p.norm2, x)
+        y, cache = rwkv_channel_mix_step(cfg, p.channel_mix, h, cache)
+        return x + y, cache
+    if p.kind == "recurrent":
+        sub, cache = recurrent_block_step(cfg, p.mixer, h, cache)
+    else:
+        sub, cache = attn_decode(cfg, p.mixer, h, pos, cache, p.kind)
     x = _residual(cfg, p, x, sub, "post_norm1")
-    h = norm(cfg, p.norm2, x)
-    x = _residual(cfg, p, x, ffn_apply(cfg, p.ffn, h), "post_norm2")
-    return x, cache
+    return _ffn_half(cfg, p, x), cache
+
+
+# ---- prefill state helpers for recurrent kinds -----------------------------
+
+def _recurrent_prefill(cfg: ModelConfig, p: RecurrentBlock, h, cache):
+    """Griffin block over the prompt, then its final (h, conv) state.
+
+    As the reference, the decode state ``h`` is the last RG-LRU output in
+    the model's type, widened back to f32 (bf16-rounded in a bf16 model),
+    not the scan's f32 final state. The conv history is the last
+    ``conv_width - 1`` conv inputs, zero-padded on the left for a shorter
+    prompt (the reference's slice would come out shorter than the cache).
+    """
+    out, u, y = recurrent_block_seq(cfg, p, h)
+    keep = cfg.conv_width - 1
+    hist = u[:, -keep:] if keep else u[:, :0]
+    cache["h"].copy_(y[:, -1].float())
+    cache["conv"].zero_()
+    cache["conv"][:, keep - hist.shape[1]:] = hist
+    return out, cache
+
+
+def _rwkv_state_from_prefill(cache: dict, s_final, w, h_tm, h_cm) -> dict:
+    """The RWKV state after the prompt, from the prefill's one ``wkv6``.
+
+    The reference scans the prompt a second time from ``cache["S"]``; the
+    scan is linear in its start state, so that is ``s_final`` (the scan from
+    zeros) plus the product of the prompt's decays times ``cache["S"]``
+    (zero for the fresh cache a prefill fills)."""
+    cache["S"].copy_(s_final + w.prod(dim=1)[..., None] * cache["S"])
+    cache["x_prev_tm"].copy_(h_tm[:, -1])
+    cache["x_prev_cm"].copy_(h_cm[:, -1])
+    return cache

@@ -26,9 +26,10 @@ sys.argv = ["repro_torch.launch.sweep", "--device", "cpu", "--instances", "4",
             "--scenario-mix", "all", "--neighbor-impl", "cuda",
             "--out", sys.argv[1]]
 runpy.run_module("repro_torch.launch.sweep", run_name="__main__")
-sys.argv = ["repro_torch.launch.serve", "--device", "cpu", "--arch",
-            "gemma2-2b", "--requests", "2", "--max-new", "3"]
-runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+for arch in ("gemma2-2b", "recurrentgemma-2b", "rwkv6-3b"):
+    sys.argv = ["repro_torch.launch.serve", "--device", "cpu", "--arch",
+                arch, "--requests", "2", "--max-new", "3"]
+    runpy.run_module("repro_torch.launch.serve", run_name="__main__")
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"modules": names, "leaked": leaked}))
@@ -46,10 +47,13 @@ def test_no_jax_or_reference_imports(tmp_path):
     assert result["leaked"] == []
     assert "repro_torch.launch.sweep" in result["modules"]
     for name in ("repro_torch.kernels.idm", "repro_torch.kernels.flash_attention",
-                 "repro_torch.models.lm", "repro_torch.serve.engine",
+                 "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6",
+                 "repro_torch.models.lm", "repro_torch.models.recurrent",
+                 "repro_torch.configs.recurrentgemma_2b",
+                 "repro_torch.configs.rwkv6_3b", "repro_torch.serve.engine",
                  "repro_torch.launch.serve"):
         assert name in result["modules"]
-    assert "[serve] completed 2/2 requests" in proc.stdout
+    assert proc.stdout.count("[serve] completed 2/2 requests") == 3
     records = json.loads(out.read_text())["records"]
     assert len(records) == 4 and all(r["steps"] == 20 for r in records)
 
@@ -85,6 +89,9 @@ def test_cuda_request_without_card_raises(monkeypatch):
         sweep_state_from_numpy(SimpleNamespace(trace=None), None)
     with pytest.raises(RuntimeError, match="cuda"):
         serve_launcher.main(["--requests", "1"])
-    with pytest.raises(RuntimeError, match="cuda"):
-        build_model(get_arch("gemma2-2b").reduced())
+    for arch in ("gemma2-2b", "recurrentgemma-2b", "rwkv6-3b"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_model(get_arch(arch).reduced())
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve_launcher.main(["--arch", arch, "--requests", "1"])
     assert resolve_device("cpu") == torch.device("cpu")

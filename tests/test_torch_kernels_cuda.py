@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card, and the LM stack served through the flash attention kernel. Every
-test here carries the ``cuda`` marker and skips without a GPU.
+card, and the LM stack served through the flash attention, RG-LRU and WKV6
+kernels. Every test here carries the ``cuda`` marker and skips without a
+GPU.
 
 This file imports torch and the port only (no JAX), so it also runs on a
 GPU machine without the reference installed::
@@ -18,7 +19,10 @@ from repro_torch.core.sweep import SweepConfig, SweepRunner
 from repro_torch.config.base import ServeConfig, get_arch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import idm, ref
+from repro_torch.kernels import rglru as rg
+from repro_torch.kernels import rwkv6 as rw
 from repro_torch.models.attention import attention_impl
+from repro_torch.models.recurrent import recurrence_impl
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ServeEngine
 
@@ -300,3 +304,191 @@ def test_engine_on_the_card_matches_per_request_greedy(cuda):
     results = eng.run()
     assert [results[r] for r in rids] == refs
     assert fa.launches["flash_attention"] == cfg.n_layers * len(prompts)
+
+
+# RG-LRU and WKV6: the reference's kernel tolerances (tests/test_kernels.py)
+RGLRU_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-3),
+             torch.float32: dict(rtol=1e-5, atol=1e-5)}
+WKV6_TOL = {torch.bfloat16: dict(rtol=5e-2, atol=5e-2),
+            torch.float32: dict(rtol=1e-4, atol=1e-4)}
+
+
+def rglru_inputs(seed, dev, dtype, b, s, w):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.7, 0.999, (b, s, w)).astype(np.float32)
+    x = rng.standard_normal((b, s, w)).astype(np.float32)
+    h0 = rng.standard_normal((b, w)).astype(np.float32)
+    return (torch.from_numpy(a).to(dev), torch.from_numpy(x).to(dev, dtype),
+            torch.from_numpy(h0).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,w", [
+    (2, 64, 128), (1, 128, 256), (1, 96, 128),   # the reference's shapes
+    (1, 37, 2560), (4, 77, 100), (3, 5, 33),    # ragged S and W
+])
+def test_rglru_kernel_matches_plain(cuda, b, s, w, dtype):
+    a, x, h0 = rglru_inputs(s + w, cuda, dtype, b, s, w)
+    before = rg.launches["rglru_linear_scan"]
+    ys, hf = rg.rglru_linear_scan(a, x, h0)
+    want_ys, want_h = ref.ref_rglru(a, x, h0)
+    torch.cuda.synchronize()
+    assert rg.launches["rglru_linear_scan"] == before + 1
+    assert ys.dtype == dtype and hf.dtype == torch.float32
+    torch.testing.assert_close(ys.float(), want_ys, **RGLRU_TOL[dtype])
+    torch.testing.assert_close(hf, want_h, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [32, 1, 37])
+def test_rglru_kernel_chunked_equals_whole(cuda, split):
+    a, x, _ = rglru_inputs(3, cuda, torch.float32, 1, 64, 2560)
+    h0 = torch.zeros((1, 2560), device=cuda)
+    y_all, h_all = rg.rglru_linear_scan(a, x, h0)
+    y1, h1 = rg.rglru_linear_scan(a[:, :split].contiguous(),
+                                  x[:, :split].contiguous(), h0)
+    y2, h2 = rg.rglru_linear_scan(a[:, split:].contiguous(),
+                                  x[:, split:].contiguous(), h1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y_all, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h2, h_all, rtol=1e-5, atol=1e-5)
+
+
+def wkv6_inputs(seed, dev, dtype, b, s, h, dk, dv):
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    r, k, v = normal(b, s, h, dk), normal(b, s, h, dk), normal(b, s, h, dv)
+    w = torch.from_numpy(rng.uniform(0.8, 0.999, (b, s, h, dk)).astype(
+        np.float32))
+    u, s0 = normal(h, dk), normal(b, h, dk, dv)
+    return ([z.to(dev, dtype) for z in (r, k, v)]
+            + [z.to(dev) for z in (w, u, s0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,dk,dv", [
+    (1, 32, 2, 16, 16), (2, 64, 2, 64, 64), (1, 48, 1, 32, 16),  # reference
+    (1, 37, 40, 64, 64),   # rwkv6-3b's heads, ragged S
+    (2, 21, 3, 48, 40),    # K and V not multiples of 16
+    (1, 3, 2, 7, 5),
+])
+def test_wkv6_kernel_matches_plain(cuda, b, s, h, dk, dv, dtype):
+    args = wkv6_inputs(s + dk + dv, cuda, dtype, b, s, h, dk, dv)
+    before = rw.launches["wkv6"]
+    y, sf = rw.wkv6(*args)
+    want_y, want_s = ref.ref_wkv6(*args)
+    torch.cuda.synchronize()
+    assert rw.launches["wkv6"] == before + 1
+    assert y.dtype == dtype and sf.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y, **WKV6_TOL[dtype])
+    torch.testing.assert_close(sf, want_s, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [32, 13])
+def test_wkv6_kernel_chunked_equals_whole(cuda, split):
+    r, k, v, w, u, _ = wkv6_inputs(5, cuda, torch.float32, 1, 64, 40, 64, 64)
+    s0 = torch.zeros((1, 40, 64, 64), device=cuda)
+    y_all, s_all = rw.wkv6(r, k, v, w, u, s0)
+    cut = [z[:, :split].contiguous() for z in (r, k, v, w)]
+    rest = [z[:, split:].contiguous() for z in (r, k, v, w)]
+    y1, s1 = rw.wkv6(*cut, u, s0)
+    y2, s2 = rw.wkv6(*rest, u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y_all, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(s2, s_all, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_recurrence_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    a, x, h0 = rglru_inputs(0, cuda, torch.float32, 1, 8, 64)
+    r, k, v, w, u, s0 = wkv6_inputs(0, cuda, torch.float32, 1, 8, 2, 16, 16)
+    before = (rg.launches["rglru_linear_scan"], rw.launches["wkv6"])
+    with pytest.raises(TypeError):
+        rg.rglru_linear_scan(a.half(), x, h0)
+    with pytest.raises(TypeError):
+        rg.rglru_linear_scan(a, x.half(), h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.rglru_linear_scan(a, x.transpose(1, 2).contiguous().transpose(1, 2),
+                             h0)
+    with pytest.raises(ValueError):
+        rg.rglru_linear_scan(a, x, h0.cpu())
+    with pytest.raises(TypeError):
+        rw.wkv6(r.bfloat16(), k, v, w, u, s0)
+    with pytest.raises(TypeError):
+        rw.wkv6(r, k, v, w.double(), u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        rw.wkv6(r, k, v, w, u, s0.transpose(2, 3).contiguous().transpose(2, 3))
+    r2, k2, v2, w2, u2, s2 = wkv6_inputs(0, cuda, torch.float32, 1, 8, 1, 80,
+                                         16)
+    with pytest.raises(ValueError, match="64"):
+        rw.wkv6(r2, k2, v2, w2, u2, s2)
+    assert (rg.launches["rglru_linear_scan"], rw.launches["wkv6"]) == before
+
+
+def recurrent_card_model(cuda, arch, seed):
+    """A reduced f32 ``arch`` whose prefill launches all its kernels: head
+    dims 64 (the flash kernel takes 64, 128 and 256)."""
+    cfg = get_arch(arch).reduced(dtype="float32", head_dim=64,
+                                 rwkv_head_dim=64)
+    model = build_model(cfg, cuda)
+    return model, model.init(torch.Generator(device=cuda).manual_seed(seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,counts", [
+    ("recurrentgemma-2b", {"rglru_linear_scan": 4, "wkv6": 0,
+                           "flash_attention": 2}),
+    ("rwkv6-3b", {"rglru_linear_scan": 0, "wkv6": 2, "flash_attention": 0}),
+])
+def test_recurrent_model_prefill_goes_through_the_kernels(cuda, arch, counts):
+    """One prefill launches each recurrence kernel once per layer of its
+    kind (recurrentgemma's reduced stack: R, R, L, R, R, L) and matches
+    the plain path (f32: the kernels and the plain versions sum in other
+    orders)."""
+    model, params = recurrent_card_model(cuda, arch, 0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 40))).to(cuda)
+    for mod in (fa, rg, rw):
+        mod.reset_launches()
+    with torch.inference_mode():
+        got, _ = model.prefill(params, model.init_cache(2, 48),
+                               {"tokens": toks})
+        assert {**rg.launches, **rw.launches,
+                **fa.launches} == counts
+        with attention_impl("xla"), recurrence_impl("plain"):
+            want, _ = model.prefill(params, model.init_cache(2, 48),
+                                    {"tokens": toks})
+    assert {**rg.launches, **rw.launches, **fa.launches} == counts
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+def test_recurrent_engine_on_the_card_matches_per_request_greedy(cuda, arch):
+    model, params = recurrent_card_model(cuda, arch, 1)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, size=n) for n in (5, 21, 3)]
+    refs = []
+    with torch.inference_mode():
+        for pr in prompts:
+            cache = model.init_cache(1, 48)
+            logits, cache = model.prefill(
+                params, cache, {"tokens": torch.from_numpy(pr[None]).to(cuda)})
+            toks = [int(logits.argmax(-1)[0])]
+            for t in range(3):
+                pos = torch.tensor([len(pr) + t], dtype=torch.int32,
+                                   device=cuda)
+                logits, cache = model.decode(
+                    params, cache, torch.tensor([toks[-1]], device=cuda), pos)
+                toks.append(int(logits.argmax(-1)[0]))
+            refs.append(toks)
+    eng = ServeEngine(model, params, ServeConfig(max_batch=2, max_seq=48))
+    rids = [eng.submit(pr, max_new=4) for pr in prompts]
+    results = eng.run()
+    assert [results[r] for r in rids] == refs

@@ -1,16 +1,21 @@
 """The port's LM stack against the reference's, on the CPU.
 
 Reduced ``gemma2-2b`` (local/global layers, window 16, softcaps, post
-norms, gelu, tied embeddings scaled by sqrt(d)) and ``qwen1.5-0.5b`` (MHA,
-QKV bias, silu): the reference's seeded parameters, with every norm scale
-and bias redrawn with numpy so that none is the identity, are carried
-across by ``repro_torch.convert.lm_params_from_numpy``; the same numpy
-tokens then go through ``Model.apply``, ``prefill`` and ``decode`` of both.
+norms, gelu, tied embeddings scaled by sqrt(d)), ``qwen1.5-0.5b`` (MHA,
+QKV bias, silu), ``recurrentgemma-2b`` (two Griffin blocks then one local
+MQA layer) and ``rwkv6-3b`` (time mix + channel mix, layer norms): the
+reference's seeded parameters, with every norm scale and bias redrawn with
+numpy so that none is the identity, are carried across by
+``repro_torch.convert.lm_params_from_numpy``; the same numpy tokens then go
+through ``Model.apply``, ``prefill`` and ``decode`` of both.
 
 Tolerances on logits: f32 ``rtol=1e-5, atol=2e-5`` (same f32 arithmetic,
-sums in another order; measured errors are below 1e-6); bf16
+sums in another order; measured errors are below 1e-5); bf16
 ``rtol=atol=3e-2``, the reference's own bound for a whole-model forward
 through another attention path (``tests/test_kernels_integration.py``).
+With the norms at their identity init the bf16 rwkv6 logits drift further
+apart than that, so ``test_bf16_as_close_to_f32_as_reference`` holds the
+recurrent archs' bf16 forward by distance to the f32 logits instead.
 """
 
 import dataclasses
@@ -25,7 +30,7 @@ from repro.config import get_arch as jax_arch
 from repro.models import build_model as jax_build
 from repro_torch.config.base import get_arch
 from repro_torch.convert import lm_params_from_numpy
-from repro_torch.models.lm import stack_plan
+from repro_torch.models.lm import layer_plan, stack_plan
 from repro_torch.models.registry import build_model
 
 TOL = {"float32": dict(rtol=1e-5, atol=2e-5),
@@ -70,34 +75,98 @@ def _close(got: torch.Tensor, want, dtype):
 
 CASES = [("gemma2-2b", "float32", {}), ("gemma2-2b", "bfloat16", {}),
          ("gemma2-2b", "float32", {"n_kv_heads": 2}),
-         ("qwen1.5-0.5b", "float32", {}), ("qwen1.5-0.5b", "bfloat16", {})]
+         ("qwen1.5-0.5b", "float32", {}), ("qwen1.5-0.5b", "bfloat16", {}),
+         ("recurrentgemma-2b", "float32", {}),
+         ("recurrentgemma-2b", "bfloat16", {}),
+         ("rwkv6-3b", "float32", {}), ("rwkv6-3b", "bfloat16", {})]
 
 
 @pytest.mark.parametrize("arch,dtype,overrides", CASES)
 def test_apply_prefill_decode_match_reference(arch, dtype, overrides):
-    """Prompt of 40 tokens: longer than gemma2's reduced window (16), so
-    its local layers ring-roll their caches; then 3 decode steps."""
+    """Prompt of 40 tokens: longer than the reduced window (16), so local
+    layers ring-roll their caches; then 3 decode steps."""
     jm, jp, tm, tp = _pair(arch, dtype, **overrides)
+    for got, want in _logits_both(jm, jp, tm, tp):
+        _close(got, want, dtype)
+
+
+def _logits_both(jm, jp, tm, tp):
+    """(port, reference) logits of ``apply``, ``prefill`` and 3 decode
+    steps on the same 40-token prompts."""
     rng = np.random.default_rng(2)
     toks = rng.integers(0, VOCAB, (2, 40))
-
+    out = []
     jl, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)})
     tl, aux = tm.apply(tp, {"tokens": torch.from_numpy(toks)})
     assert tl.dtype == torch.float32 and tl.shape == (2, 40, VOCAB)
     assert float(aux) == 0.0
-    _close(tl, jl, dtype)
+    out.append((tl, jl))
 
     jc, tc = jm.init_cache(2, 64), tm.init_cache(2, 64)
     jl, jc = jm.prefill(jp, jc, {"tokens": jnp.asarray(toks)})
     tl, tc = tm.prefill(tp, tc, {"tokens": torch.from_numpy(toks)})
-    _close(tl, jl, dtype)
+    out.append((tl, jl))
     for step in range(3):
         tok = rng.integers(0, VOCAB, (2,))
         pos = np.full((2,), 40 + step, np.int32)
         jl, jc = jm.decode(jp, jc, jnp.asarray(tok), jnp.asarray(pos))
         tl, tc = tm.decode(tp, tc, torch.from_numpy(tok),
                            torch.from_numpy(pos))
-        _close(tl, jl, dtype)
+        out.append((tl, jl))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+def test_bf16_as_close_to_f32_as_reference(arch):
+    """The reference's own seeded weights (norms at their identity init):
+    there the bf16 rwkv6 logits of the reference lie 0.13 from its f32
+    logits, and two bf16 paths that round at other places differ by more
+    than 3e-2 although every layer agrees to one bf16 ulp. So the forward's
+    bf16 logits [2, 40, V] are held by distance: the port's to the
+    reference's f32 logits (the same weights, widened exactly) is at most
+    1.25x the reference's own bf16 distance to them."""
+    cfg = get_arch(arch).reduced()
+    jm = jax_build(jax_arch(arch).reduced())
+    jp = jm.init(jax.random.key(0))
+    jm32 = jax_build(dataclasses.replace(jm.cfg, dtype="float32"))
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    toks = np.random.default_rng(2).integers(0, VOCAB, (2, 40))
+    got, _ = build_model(cfg, "cpu").apply(tp, {"tokens": torch.from_numpy(toks)})
+    want, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)})
+    f32, _ = jm32.apply(jp32, {"tokens": jnp.asarray(toks)})
+    f32 = np.asarray(f32, np.float32)
+    port = float(np.abs(got.float().numpy() - f32).max())
+    ref = float(np.abs(np.asarray(want, np.float32) - f32).max())
+    assert port <= 1.25 * ref, (port, ref)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+@pytest.mark.parametrize("prompt", [0, 2])
+def test_decode_matches_full_forward(arch, prompt):
+    """Token-by-token decode after a ``prompt``-token prefill (0: decode
+    from the first token) reproduces the teacher-forced forward, in bf16
+    within ``rtol = atol = 2e-2`` (``tests/test_configs_smoke.py``). A
+    2-token prompt is shorter than the Griffin conv history (3)."""
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, VOCAB, (1, 12)))
+    full, _ = model.apply(params, {"tokens": tokens})
+    cache = model.init_cache(1, 16)
+    steps = []
+    if prompt:
+        logits, cache = model.prefill(params, cache,
+                                      {"tokens": tokens[:, :prompt]})
+        steps.append(logits)
+    for t in range(prompt, 12):
+        logits, cache = model.decode(params, cache, tokens[:, t],
+                                     torch.tensor([t], dtype=torch.int32))
+        steps.append(logits)
+    start = prompt - 1 if prompt else 0
+    torch.testing.assert_close(torch.stack(steps, dim=1), full[:, start:],
+                               rtol=2e-2, atol=2e-2)
 
 
 def test_ring_rolled_cache_matches_reference():
@@ -124,6 +193,22 @@ def test_ring_rolled_cache_matches_reference():
     local = tc[0]["pos"][0].tolist()
     assert sorted(local) == list(range(37 - cfg.window, 37))
     assert all(p % cfg.window == slot for slot, p in enumerate(local))
+
+
+def test_layer_plans_of_the_recurrent_archs():
+    """recurrentgemma-2b: 26 layers, 8 x (R, R, L) then a tail of R, R (18
+    Griffin blocks, 8 local layers); rwkv6-3b: 32 rwkv layers. Only the
+    attention and Griffin layers have an ``ffn``."""
+    kinds = [kind for kind, _, _ in layer_plan(get_arch("recurrentgemma-2b"))]
+    assert kinds == ["recurrent", "recurrent", "local"] * 8 + ["recurrent"] * 2
+    assert [kind for kind, _, _ in layer_plan(get_arch("rwkv6-3b"))] == \
+        ["rwkv"] * 32
+    for arch in ("recurrentgemma-2b", "rwkv6-3b"):
+        params = build_model(get_arch(arch).reduced(), "cpu").init(
+            torch.Generator().manual_seed(0))
+        for layer in params.layers:
+            assert hasattr(layer, "ffn") == (layer.kind != "rwkv")
+            assert hasattr(layer, "time_mix") == (layer.kind == "rwkv")
 
 
 def test_converter_checks_names_and_shapes():
@@ -164,5 +249,5 @@ def test_port_init_is_seeded_and_in_the_configured_type():
     assert float(wq.abs().max()) <= 2 * cfg.d_model**-0.5 * 1.01
     assert float(a.layers[0].norm1.scale.abs().max()) == 0.0
     with pytest.raises(NotImplementedError):
-        build_model(get_arch("gemma2-2b").reduced(
-            layer_pattern=("recurrent",)), "cpu").init(torch.Generator())
+        build_model(get_arch("gemma2-2b").reduced(use_mla=True),
+                    "cpu").init(torch.Generator())

@@ -85,13 +85,15 @@ def test_engine_more_requests_than_slots():
     assert all(len(v) == 3 for v in results.values())
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-2b",
+                                  "recurrentgemma-2b", "rwkv6-3b"])
 def test_engine_tokens_match_reference_engine(arch):
-    """Same f32 weights, same prompts (one longer than gemma2's reduced
-    window of 16), 4 requests through 2 slots: the port's engine emits the
-    reference engine's tokens. The reference decodes once more before it
-    checks a request's budget, so ``max_new=1`` returns two tokens; the
-    port keeps that behaviour (ROADMAP queue 3)."""
+    """Same f32 weights, same prompts (one longer than the reduced window of
+    16), 4 requests through 2 slots: the port's engine emits the reference
+    engine's tokens. The reference decodes once more before it checks a
+    request's budget, so ``max_new=1`` returns two tokens; the port keeps
+    that behaviour (ROADMAP queue 3). Slots are recycled after a longer
+    request, so a recurrent state left behind would show."""
     overrides = dict(SMALL, vocab_size=256) if arch == "qwen1.5-0.5b" else \
         dict(dtype="float32")
     jm = jax_build(jax_arch(arch).reduced(**overrides))
@@ -120,3 +122,35 @@ def test_serve_launcher_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[serve] completed 3/3 requests" in out
     assert "tokens/s" in out
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+def test_serve_launcher_serves_recurrent_archs_on_cpu(arch, capsys):
+    res = launcher.main(["--device", "cpu", "--arch", arch, "--requests", "3",
+                         "--slots", "2", "--max-new", "4"])
+    assert sorted(res["results"]) == [0, 1, 2]
+    assert all(len(v) == 4 for v in res["results"].values())
+    assert res["model"].cfg.name == f"{arch}-smoke"
+    assert "[serve] completed 3/3 requests" in capsys.readouterr().out
+
+
+def test_recycled_slot_keeps_no_recurrent_state():
+    """After a long request leaves its slot, every recurrent cache row of
+    that slot holds exactly what a fresh prefill of the next prompt gives."""
+    cfg = get_arch("rwkv6-3b").reduced(dtype="float32")
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(2))
+    eng = ServeEngine(model, params, ServeConfig(max_batch=1, max_seq=64))
+    rng = np.random.default_rng(5)
+    eng.submit(rng.integers(0, 256, size=30), max_new=3)
+    eng.run()
+    short = rng.integers(0, 256, size=4)
+    eng.submit(short, max_new=1)
+    with torch.inference_mode():
+        eng._admit()
+        fresh = model.init_cache(1, 64)
+        model.prefill(params, fresh, {"tokens": torch.from_numpy(short[None])})
+    for pool, one in zip(eng.cache, fresh):
+        assert set(pool) == {"S", "x_prev_tm", "x_prev_cm"}
+        for name in pool:
+            assert torch.equal(pool[name], one[name]), name
