@@ -33,9 +33,12 @@ Phases, in order; any failure raises and exits non-zero:
    window 4096, softcap 50), once more at S 512 with q scaled by 20 so that
    the scores reach the cap, at qwen1.5-0.5b's (H = K = 16, D 64) and at
    recurrentgemma-2b's local layers (H 10, K 1, D 256, window 2048, no
-   softcap, S 512/6000), in bf16 (rtol 2e-2, atol 8e-3) and f32 (rtol
-   2e-3, atol 2e-4), the tolerances of ``tests/test_kernels.py``; kernel,
-   plain version, bound and the library call timed:
+   softcap, S 512/2100/6000; 2100 puts the window edge off the tile grid),
+   in bf16 (the wgmma kernel; rtol 2e-2, atol 8e-3) and f32 (the CUDA-core
+   kernel; rtol 2e-3, atol 2e-4), the tolerances of
+   ``tests/test_kernels.py``; kernel (with its TFLOP/s, 4·D per live pair
+   per head, and its share of the bound in bf16), plain version, bound and
+   the library call timed:
    ``scaled_dot_product_attention`` for the causal shapes without softcap,
    compiled ``flex_attention`` (softcap ``score_mod``, causal/window block
    mask, GQA) for the other shapes in bf16 (each held against
@@ -398,7 +401,7 @@ FLASH_SHAPES = [
         ("qwen1.5-0.5b", 16, 16, 64, 0, 0.0))
 ] + [("gemma2-2b global S=512 q x 20", 1, 512, 8, 4, 256, 0, 50.0, 20.0)] + [
     (f"recurrentgemma-2b local S={s}", 1, s, 10, 1, 256, 2048, 0.0, 1.0)
-    for s in (512, 6000)
+    for s in (512, 2100, 6000)  # 2100: the window edge off the tile grid
 ]
 
 _FLEX: dict = {}  # the compiled flex_attention and its mods, made once
@@ -512,16 +515,20 @@ def flash_phase(torch, fa, ref) -> list[dict]:
                 * q.element_size()
             bound_ms, bound_by = bound(bytes_moved, 4 * d * pairs,
                                        TENSOR_OPS_PER_S[dtype])
+            tflops = 4 * d * pairs / ms / 1e9
             results.append(dict(shape=label, B=b, S=s, H=h, K=kh, D=d,
                                 window=window, softcap=cap, q_scale=q_scale,
                                 dtype=dtype, max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, library=library,
+                                bound_by=bound_by, tflops=tflops,
+                                bound_share=bound_ms / ms, library=library,
                                 library_ms=library_ms))
             lib_txt = (f"{library} {library_ms:.5f} ms" if library else
                        "flex_attention not timed in f32")
+            rate = (f", {tflops:.1f} TFLOP/s, {100 * bound_ms / ms:.2f}% of "
+                    "its bound" if dtype == "bfloat16" else "")
             log(f"flash_attention {label} {dtype}: max |err| {err:.3g} "
-                f"(tol {FLASH_TOL[dtype]}); kernel {ms:.5f} ms, plain "
+                f"(tol {FLASH_TOL[dtype]}); kernel {ms:.5f} ms{rate}, plain "
                 f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
                 f"{lib_txt}")
             del q, k, v, got, want

@@ -1,14 +1,24 @@
-"""Wrapper for the hand-written flash attention kernel
-(``csrc/flash_attention.cu``), which replaces
+"""Wrapper for the hand-written flash attention kernels
+(``csrc/flash_attention.cu``), which replace
 ``repro/kernels/flash_attention.py::flash_attention``.
 
 On a CPU tensor ``flash_attention`` runs the kernel's plain PyTorch version
 (:func:`repro_torch.kernels.ref.ref_attention`). On a CUDA tensor it checks
-device, dtype, shape and contiguity, allocates the output with
-``torch.empty``, launches the kernel on the tensors' card (under a device
-guard) and its current stream without synchronising, raises if the launch
-was refused, and adds one to ``launches["flash_attention"]``. There is no
-fallback from a CUDA tensor to the plain version.
+device, dtype, shape, contiguity and 16-byte alignment, allocates the
+output with ``torch.empty``, launches a kernel on the tensors' card (under
+a device guard) and its current stream without synchronising, raises if
+the launch was refused, and adds one to ``launches["flash_attention"]``.
+There is no fallback from a CUDA tensor to the plain version, nor from one
+kernel to the other.
+
+One C entry, two kernels: bf16 runs on the Hopper tensor cores
+(``flash_fwd_wgmma``: wgmma for both products, K/V tiles by TMA into an
+mbarrier ring, p rounded to bf16 before its product with v, as
+``ref_attention`` rounds it); f32 runs on the CUDA cores (``flash_fwd``),
+since wgmma takes no f32 input and TF32 would not hold the f32 tolerance.
+The bf16 kernel's TMA descriptors are encoded per launch with
+``cuTensorMapEncodeTiled``, reached through the CUDA runtime's driver
+entry point, so the library links nothing beyond the runtime.
 """
 
 from __future__ import annotations
@@ -67,6 +77,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     for name, t, shape in (("q", q, (b, sq, h, d)), ("k", k, (b, sk, kh, d)),
                            ("v", v, (b, sk, kh, d))):
         check_tensor(name, t, q.dtype, shape, q.device)
+        if t.data_ptr() % 16:
+            # TMA (bf16) and 16-byte vector loads (f32) need aligned rows
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     out = torch.empty_like(q)
     fn = symbol("flash_attention", "flash_attention_launch", _ARGTYPES)
     with torch.cuda.device(q.device):

@@ -3,6 +3,9 @@
 * ``repro_torch.kernels.ref.ref_attention`` (the flash kernel's plain
   version) against the Pallas ``flash_attention`` in interpret mode and the
   reference's ``ref_attention``;
+* the bf16 Hopper kernel's arithmetic (key tiles of 64, p rounded to bf16
+  before P.V), written out in plain torch, against the Pallas kernel in
+  interpret mode;
 * ``repro_torch.models.attention.full_attention`` on the default path
   (the kernel wrapper, which runs ``ref_attention`` on a CPU tensor) and
   under ``attention_impl("xla")`` (``sdpa``, tiled ``flash_xla``) against
@@ -70,6 +73,73 @@ def test_ref_attention_matches_pallas_kernel(b, s, h, kh, d, causal, window,
     _close(got, want, dtype)
     _close(got, jax_ref(jq, jk, jv, causal=causal, window=window,
                         softcap=cap), dtype)
+
+
+def _tiled_bf16_p(q, k, v, causal, window, cap, bk=64):
+    """The bf16 Hopper kernel's arithmetic in plain torch: key tiles of
+    ``bk``, the online max and row sum in f32, the unnormalised p rounded
+    to bf16 before its product with the bf16 v (accumulated in f32), the
+    row sum taken from the f32 p, and ``acc / max(l, 1e-30)`` in q's type.
+    (The kernel works in log2 units with ``ex2.approx``: a relative error
+    of about 2^-22, far inside the bf16 tolerance.)"""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, kh, h // kh, d)
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    m = torch.full((b, kh, h // kh, sq), -2.0**30)
+    l = torch.zeros(b, kh, h // kh, sq)
+    acc = torch.zeros(b, kh, h // kh, sq, d)
+    for k0 in range(0, sk, bk):
+        kt, vt = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk].float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kt) * d**-0.5
+        if cap > 0.0:
+            s = cap * torch.tanh(s / cap)
+        kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        mask = torch.ones(sq, kt.shape[1], dtype=torch.bool)
+        if causal:
+            mask &= qpos >= kpos
+        if window > 0:
+            mask &= (qpos - kpos) < window
+        s = torch.where(mask, s, -2.0**30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("h,kh,d,window,cap,q_scale", [
+    (4, 2, 256, 0, 50.0, 1.0),    # gemma2-like global
+    (4, 2, 256, 0, 50.0, 20.0),   # ... with scores that reach the cap
+    (4, 2, 256, 64, 50.0, 1.0),   # gemma2-like local
+    (4, 2, 256, 64, 50.0, 20.0),
+    (4, 1, 256, 64, 0.0, 1.0),    # recurrentgemma-like local (MQA)
+    (4, 2, 64, 0, 0.0, 1.0),      # D 64
+    (4, 2, 128, 0, 0.0, 1.0),     # D 128
+])
+def test_bf16_p_rounding_is_inside_the_kernel_tolerance(h, kh, d, window,
+                                                        cap, q_scale):
+    """Rounding the unnormalised p to bf16 before P.V, as the bf16 Hopper
+    kernel does, stays within the bf16 kernel tolerance (rtol 2e-2, atol
+    8e-3) of the reference's Pallas kernel, which keeps p in f32 (interpret
+    mode, blocks of 64, S 192)."""
+    s = 192
+    rng = np.random.default_rng(d + h + window)
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((1, s, h, d), (1, s, kh, d), (1, s, kh, d))]
+    arrs[0] *= q_scale
+    jx = [jnp.asarray(a, jnp.bfloat16) for a in arrs]
+    tx = [torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+          for a in jx]
+    want = jax_flash(*jx, causal=True, window=window, softcap=cap,
+                     block_q=64, block_k=64, interpret=True)
+    got = _tiled_bf16_p(*tx, True, window, cap)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, s, h, d)
+    _close(got, want, "bfloat16")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -201,6 +201,13 @@ def rand_qkv(seed, dev, dtype, b, sq, sk, h, kh, d, q_scale=1.0):
     (1, 64, 200, 4, 1, 128, True, 50, 0.0),     # end-aligned queries, MQA
     (1, 77, 77, 4, 2, 128, False, 0, 0.0),      # non-causal
     (1, 100, 100, 2, 2, 64, False, 30, 0.0),    # window without causality
+    # the bf16 kernel's edges: 128 query rows and 64 keys a tile
+    (2, 129, 129, 4, 2, 128, True, 0, 0.0),     # ragged rows and keys, B 2
+    (2, 1000, 1000, 8, 4, 256, True, 0, 50.0),  # B 2: no key of row 1 leaks
+    (1, 2100, 2100, 10, 1, 256, True, 2048, 0.0),  # window edge off the grid
+    (1, 129, 4000, 8, 4, 256, True, 0, 50.0),   # end-aligned, Sq << Sk
+    (1, 300, 300, 4, 2, 64, True, 96, 0.0),     # D 64, window and causal
+    (1, 300, 300, 4, 2, 128, True, 96, 0.0),    # D 128, window and causal
 ])
 def test_flash_attention_matches_plain(cuda, b, sq, sk, h, kh, d, causal,
                                        window, cap, dtype):
@@ -240,7 +247,9 @@ def test_flash_attention_softcap_at_the_cap(cuda, q_scale, cap, window,
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     """A CUDA tensor the kernel cannot take raises; it never runs the plain
-    version instead."""
+    version instead. The bf16 kernel's TMA loads need 16-byte-aligned
+    rows, so a bf16 q that starts one element past an aligned address is
+    refused (the Pallas table's head dims are all taken)."""
     q, k, v = rand_qkv(0, cuda, torch.bfloat16, 1, 32, 32, 4, 2, 64)
     before = fa.launches["flash_attention"]
     with pytest.raises(TypeError):
@@ -255,6 +264,11 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
                            v[..., :16].contiguous())
     with pytest.raises(ValueError):
         fa.flash_attention(q, k.cpu(), v)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    shifted = shifted.view(q.shape).copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(shifted, k, v)
     assert fa.launches["flash_attention"] == before
 
 
