@@ -46,10 +46,13 @@ Phases, in order; any failure raises and exits non-zero:
 9. recurrences — ``rglru_linear_scan`` against ``ref_rglru`` (B 1 and 4,
    W 2560, S 37/512/6000; ys rtol 2e-2 atol 2e-3 in bf16, 1e-5 in f32,
    h_final 1e-4) and ``wkv6`` against ``ref_wkv6`` (B 1, H 40, K = V = 64,
-   S 37/512/4096/6000; 5e-2 in bf16, 1e-4 in f32, the state 1e-3), x or
-   r/k/v in bf16 and f32, the tolerances of ``tests/test_kernels.py``; two
-   chunks through ``h0``/``s0`` equal one; kernel, plain version and bound
-   timed (no single PyTorch call computes either recurrence);
+   S 37/512/4096/6000 with mild decays and S 6000 with strong ones that
+   include exact zeros and ones; 5e-2 in bf16, 1e-4 in f32, the state 1e-3),
+   x or r/k/v in bf16 and f32, the tolerances of ``tests/test_kernels.py``;
+   two chunks through ``h0``/``s0`` equal one; kernel, plain version and
+   bound timed, each wkv6 line with its share of the bound and the main
+   shape's with its bar of 1.0 ms and target of 0.30 ms (no single PyTorch
+   call computes either recurrence);
 
 then, for each served model in turn (gemma2-2b, recurrentgemma-2b,
 rwkv6-3b), freeing each before the next:
@@ -123,6 +126,13 @@ RGLRU_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-3),
              "float32": dict(rtol=1e-5, atol=1e-5)}
 WKV6_TOL = {"bfloat16": dict(rtol=5e-2, atol=5e-2),
             "float32": dict(rtol=1e-4, atol=1e-4)}
+# (S, decays) of phase 9's wkv6 draws: mild decays U(0.8, 0.999) as the
+# reference's tests draw them, and at the main length strong ones,
+# exp(-exp(U(-8, 5))) with one entry in 16 exactly 0 and one in 16 exactly 1
+WKV6_DRAWS = ((37, "mild"), (512, "mild"), (4096, "mild"), (6000, "mild"),
+              (6000, "strong"))
+# the main shape's f32 time that the chunked kernel must and should reach
+WKV6_BAR_MS, WKV6_TARGET_MS = 1.0, 0.30
 
 
 T_START = time.perf_counter()
@@ -594,14 +604,21 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
 
     rw_results = []
     b, h, kd, vd = 1, 40, 64, 64
-    for s in (37, 512, 4096, 6000):
+    for s, decay in WKV6_DRAWS:
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             r, k = (torch.randn((b, s, h, kd), generator=gen,
                                 device="cuda").to(dt) for _ in range(2))
             v = torch.randn((b, s, h, vd), generator=gen, device="cuda").to(dt)
-            w = torch.rand((b, s, h, kd), generator=gen, device="cuda") \
-                * 0.199 + 0.8
+            if decay == "strong":
+                w = torch.exp(-torch.exp(torch.rand(
+                    (b, s, h, kd), generator=gen, device="cuda") * 13 - 8))
+                pick = torch.rand((b, s, h, kd), generator=gen, device="cuda")
+                w = torch.where(pick < 1 / 16, 0.0,
+                                torch.where(pick > 15 / 16, 1.0, w))
+            else:
+                w = torch.rand((b, s, h, kd), generator=gen, device="cuda") \
+                    * 0.199 + 0.8
             u = torch.randn((h, kd), generator=gen, device="cuda")
             s0 = torch.randn((b, h, kd, vd), generator=gen, device="cuda")
             args = (r, k, v, w, u, s0)
@@ -622,12 +639,18 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
             bound_ms, bound_by = bound(
                 bytes_moved, b * s * h * (5 * kd * vd + 3 * kd + 2 * vd))
             rw_results.append(dict(B=b, S=s, H=h, K=kd, V=vd, dtype=dtype,
-                                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by))
-            log(f"wkv6 B={b} S={s} H={h} K={kd} V={vd} {dtype}: max |err| "
-                f"{err:.3g} (tol {WKV6_TOL[dtype]}, state 1e-3); kernel "
-                f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} "
-                f"ms ({bound_by})")
+                                   decay=decay, max_abs_err=err, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by,
+                                   bound_share=bound_ms / ms))
+            bar = (f"; the bar {WKV6_BAR_MS} ms, the target "
+                   f"{WKV6_TARGET_MS} ms" if (s, decay, dtype) ==
+                   (6000, "mild", "float32") else "")
+            log(f"wkv6 B={b} S={s} H={h} K={kd} V={vd} {dtype} {decay} "
+                f"decays: max |err| {err:.3g} (tol {WKV6_TOL[dtype]}, state "
+                f"1e-3); kernel {ms:.5f} ms, {100 * bound_ms / ms:.2f}% of "
+                f"its bound, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} "
+                f"ms ({bound_by}){bar}")
             del r, k, v, w, args, y, want_y
     r, k, v = (torch.randn((1, 512, h, kd), generator=gen, device="cuda")
                for _ in range(3))
@@ -1071,7 +1094,7 @@ def main() -> None:
     main_rg = next(r for r in rg_results if r["dtype"] == "float32" and
                    r["S"] == 6000 and r["B"] == 1)
     main_rw = next(r for r in rw_results if r["dtype"] == "float32" and
-                   r["S"] == 6000)
+                   r["S"] == 6000 and r["decay"] == "mild")
     kernels.append(dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
         replaces="src/repro/kernels/flash_attention.py:135",

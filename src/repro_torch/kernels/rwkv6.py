@@ -3,11 +3,13 @@
 
 On a CPU tensor ``wkv6`` runs the kernel's plain PyTorch version
 (:func:`repro_torch.kernels.ref.ref_wkv6`). On a CUDA tensor it checks
-device, dtype, shape and contiguity, allocates the outputs with
-``torch.empty``, launches the kernel on the tensors' card (under a device
-guard) and its current stream without synchronising, raises if the launch
-was refused, and adds one to ``launches["wkv6"]``. There is no fallback
-from a CUDA tensor to the plain version.
+device, dtype, shape and contiguity, allocates the outputs and the chunked
+form's scratch (each chunk's aggregate, inclusive state and flag, and the
+counter that orders the blocks) with ``torch.empty``, launches the kernels
+on the tensors' card (under a device guard) and its current stream without
+synchronising, raises if a launch was refused, and adds one to
+``launches["wkv6"]``: one per call, however many device kernels the call
+runs. There is no fallback from a CUDA tensor to the plain version.
 """
 
 from __future__ import annotations
@@ -22,12 +24,15 @@ from repro_torch.kernels.ref import ref_wkv6
 #: launch count; only a real kernel launch increments it
 launches = {"wkv6": 0}
 
-#: the largest key and value head dims the kernel takes
+#: the largest key and value head dims the kernel takes; the scratch state
+#: is padded to this
 MAX_HEAD_DIM = 64
+#: steps per chunk (``C`` in ``csrc/wkv6.cu``)
+CHUNK = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
+_ARGTYPES = [_P] * 9 + [_I] * 6 + [_P]
 
 
 def reset_launches() -> None:
@@ -69,10 +74,15 @@ def wkv6(r, k, v, w, u, s0):
         check_tensor(name, t, dtype, shape, dev)
     y = torch.empty_like(v)
     state = torch.empty((b, h, kd, vd), dtype=torch.float32, device=dev)
+    nc = max(1, -(-s // CHUNK))  # S 0 runs as one empty chunk
+    scratch = torch.empty(
+        b * h * nc * (2 * MAX_HEAD_DIM**2 + MAX_HEAD_DIM + 1) + 1,
+        dtype=torch.float32, device=dev)
     fn = symbol("wkv6", "wkv6_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), s0.data_ptr(), y.data_ptr(), state.data_ptr(),
+                 scratch.data_ptr(),
                  int(v.dtype == torch.bfloat16), b, s, h, kd, vd,
                  torch.cuda.current_stream(dev).cuda_stream)
     launched("wkv6", err, launches)

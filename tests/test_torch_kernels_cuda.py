@@ -418,6 +418,83 @@ def test_wkv6_kernel_chunked_equals_whole(cuda, split):
     torch.testing.assert_close(s2, s_all, rtol=1e-4, atol=1e-4)
 
 
+def strong_wkv6_inputs(seed, b, s, h, dk, dv, strong=True):
+    """numpy r, k, v, w, u, s0 (f32); with ``strong`` the decays are
+    ``exp(-exp(U(-8, 5)))`` (zero in f32 past about U 4.6) with about one
+    entry in 16 set to exactly 0 and one in 16 to exactly 1, else
+    ``U(0.8, 0.999)`` (the reference's test draw). The same function is in
+    ``tests/test_torch_wkv6_chunked.py``, which holds the kernel's chunked
+    arithmetic against the reference on the CPU with these inputs."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    r, k, v = normal(b, s, h, dk), normal(b, s, h, dk), normal(b, s, h, dv)
+    if strong:
+        w = np.exp(-np.exp(rng.uniform(-8.0, 5.0, (b, s, h, dk))))
+        pick = rng.uniform(size=w.shape)
+        w[pick < 1 / 16] = 0.0
+        w[pick > 15 / 16] = 1.0
+    else:
+        w = rng.uniform(0.8, 0.999, (b, s, h, dk))
+    u, s0 = normal(h, dk), normal(b, h, dk, dv)
+    return r, k, v, w.astype(np.float32), u, s0
+
+
+def wkv6_on(dev, dtype, arrays):
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in arrays)
+    return ([z.to(dev, dtype) for z in (r, k, v)]
+            + [z.to(dev) for z in (w, u, s0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,dk,dv", [
+    # S at the chunk (64) and sub-chunk (16) edges, and S 0
+    *((1, s, 2, 64, 64) for s in (0, 1, 15, 16, 17, 63, 64, 65, 127, 128,
+                                  129, 200)),
+    (1, 65, 3, 48, 40), (1, 200, 3, 48, 40),   # K and V below 64
+    (2, 129, 40, 64, 64),                      # B 2 with rwkv6-3b's heads
+])
+def test_wkv6_kernel_strong_decays_at_chunk_edges(cuda, b, s, h, dk, dv,
+                                                  dtype):
+    """Strong decays with exact zeros and ones: the chunked kernel's
+    running products must give the recurrence's exact 0 where w is 0."""
+    args = wkv6_on(cuda, dtype, strong_wkv6_inputs(s + dk + dv + b, b, s, h,
+                                                   dk, dv))
+    before = rw.launches["wkv6"]
+    y, sf = rw.wkv6(*args)
+    want_y, want_s = ref.ref_wkv6(*args)
+    torch.cuda.synchronize()
+    assert rw.launches["wkv6"] == before + 1
+    assert y.shape == (b, s, h, dv) and y.dtype == dtype
+    assert torch.isfinite(y.float()).all() and torch.isfinite(sf).all()
+    torch.testing.assert_close(y.float(), want_y, **WKV6_TOL[dtype])
+    torch.testing.assert_close(sf, want_s, rtol=1e-3, atol=1e-3)
+    if s == 0:
+        assert torch.equal(sf, args[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strong", [True, False])
+@pytest.mark.parametrize("split", [100, 1, 65])
+def test_wkv6_kernel_two_chunks_through_s0(cuda, split, strong):
+    """S 300 cut at a length that is not a multiple of the chunk: the second
+    call starts from the first one's state (1e-4, as one scan)."""
+    r, k, v, w, u, _ = wkv6_on(cuda, torch.float32, strong_wkv6_inputs(
+        7, 1, 300, 40, 64, 64, strong))
+    s0 = torch.zeros((1, 40, 64, 64), device=cuda)
+    y_all, s_all = rw.wkv6(r, k, v, w, u, s0)
+    cut = [z[:, :split].contiguous() for z in (r, k, v, w)]
+    rest = [z[:, split:].contiguous() for z in (r, k, v, w)]
+    y1, s1 = rw.wkv6(*cut, u, s0)
+    y2, s2 = rw.wkv6(*rest, u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y_all, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(s2, s_all, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_recurrence_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     a, x, h0 = rglru_inputs(0, cuda, torch.float32, 1, 8, 64)
