@@ -16,7 +16,12 @@ Phases, in order; any failure raises and exits non-zero:
    ``idm_accel_kernel`` within rtol = atol = 1e-6, because its IDM epilogue
    divides, takes a square root and sums in an order the compiler may
    schedule differently from PyTorch's element-wise kernels), at the sweep's
-   own shapes and larger ones, and time kernel, plain version and bound;
+   own shapes (table builds in rows mode, row q asking for lane q, and the
+   own-lane query), random query lanes, larger shapes, 65536 instances and
+   8193 slots (past the sort's 8192, where the all-pairs kernel answers),
+   and time kernel, plain version and bound beside the card's launch floor
+   (a one-element in-place add, timed alike); the main table build's line
+   carries its bar of 0.008 ms and target of 0.004 ms;
 4. sweep  — the port's launcher in-process at full size (1024 instances,
    128 slots, the four-scenario mix, grouped dispatch, ``--neighbor-impl
    cuda``): completion must reach 1.0 and the neighbor kernel's launch
@@ -42,10 +47,16 @@ Phases, in order; any failure raises and exits non-zero:
    ``scaled_dot_product_attention`` for the causal shapes without softcap,
    compiled ``flex_attention`` (softcap ``score_mod``, causal/window block
    mask, GQA) for the other shapes in bf16 (each held against
-   ``ref_attention`` first; the port never calls either);
+   ``ref_attention`` first; the port never calls either); then 64 seeded
+   q x 20 draws at gemma2-2b's global S 512 shape in bf16: how many cross
+   the bf16 tolerance and the largest ratio of error to tolerance
+   (reported, not enforced);
 9. recurrences — ``rglru_linear_scan`` against ``ref_rglru`` (B 1 and 4,
-   W 2560, S 37/512/6000; ys rtol 2e-2 atol 2e-3 in bf16, 1e-5 in f32,
-   h_final 1e-4) and ``wkv6`` against ``ref_wkv6`` (B 1, H 40, K = V = 64,
+   W 2560, S 37/512/6000 with mild decays and at B 1, S 6000 strong ones
+   with exact zeros and ones; ys rtol 2e-2 atol 2e-3 in bf16, 1e-5 in f32,
+   h_final 1e-4; each line with its share of the bound, the main shape's
+   with its bar of 0.20 ms and target of 0.110 ms) and ``wkv6`` against
+   ``ref_wkv6`` (B 1, H 40, K = V = 64,
    S 37/512/4096/6000 with mild decays and S 6000 with strong ones that
    include exact zeros and ones; 5e-2 in bf16, 1e-4 in f32, the state 1e-3),
    x or r/k/v in bf16 and f32, the tolerances of ``tests/test_kernels.py``;
@@ -109,6 +120,7 @@ WKV6_SOURCE = "src/repro_torch/kernels/csrc/wkv6.cu"
 TENSOR_OPS_PER_S = {"bfloat16": 989e12, "float32": 495e12}  # f32 via TF32
 FLASH_TOL = {"bfloat16": dict(rtol=2e-2, atol=8e-3),
              "float32": dict(rtol=2e-3, atol=2e-4)}
+FLASH_MARGIN_DRAWS = 64
 SERVE = dict(requests=8, slots=4, max_seq=8192, max_new=32, min_prompt=16,
              max_prompt=8000)
 # (arch, prompt length of the serve-vs-plain phase): longer than each local
@@ -121,7 +133,7 @@ KERNEL_OF_KIND = {"global": "flash_attention", "local": "flash_attention",
                   "recurrent": "rglru_linear_scan", "rwkv": "wkv6"}
 # device-kernel names of the hand-written serving kernels in a profile
 PROFILE_NAMES = {"flash_attention": "flash_fwd",
-                 "rglru_linear_scan": "rglru_scan", "wkv6": "wkv6_fwd"}
+                 "rglru_linear_scan": "rglru_chunk", "wkv6": "wkv6_fwd"}
 RGLRU_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-3),
              "float32": dict(rtol=1e-5, atol=1e-5)}
 WKV6_TOL = {"bfloat16": dict(rtol=5e-2, atol=5e-2),
@@ -133,6 +145,10 @@ WKV6_DRAWS = ((37, "mild"), (512, "mild"), (4096, "mild"), (6000, "mild"),
               (6000, "strong"))
 # the main shape's f32 time that the chunked kernel must and should reach
 WKV6_BAR_MS, WKV6_TARGET_MS = 1.0, 0.30
+# the same for the neighbor kernel's table build at the sweep's shape (B 256,
+# N 128, Q 4 rows) and for RG-LRU at B 1, S 6000, W 2560, f32
+NEIGHBOR_BAR_MS, NEIGHBOR_TARGET_MS = 0.008, 0.004
+RGLRU_BAR_MS, RGLRU_TARGET_MS = 0.20, 0.110
 
 
 T_START = time.perf_counter()
@@ -205,15 +221,24 @@ def rand_world(gen, b: int, n: int, p_act: float = 0.8):
     return pos, lane, active
 
 
-def lane_tables_query(b: int, q: int, n: int, lane):
-    """The query rows the sweep gives the kernel: one row per lane for a
-    table build, the vehicles' own lanes for the single query."""
+def query_rows(gen, mode: str, b: int, q: int, n: int, lane):
+    """The query rows of one ``neighbor_kernel`` call: ``rows`` (a table
+    build, row q asking for lane q: no query-lane tensor, as the sweep
+    calls it), ``own`` (the vehicles' own lanes, Q 1, the sweep's single
+    query) or ``lanes`` (random lanes per vehicle). Returns the
+    ``query_lanes`` argument (None for rows) and the ``[B, Q, N]`` lanes
+    the rows ask for (to count the work)."""
     import torch
 
-    if q == 1:
-        return lane[:, None, :].contiguous()
-    rows = torch.arange(q, dtype=torch.int32, device=lane.device)
-    return rows[None, :, None].expand(b, q, n).contiguous()
+    if mode == "rows":
+        rows = torch.arange(q, dtype=torch.int32, device=lane.device)
+        return None, rows[None, :, None].expand(b, q, n)
+    if mode == "own":
+        ql = lane[:, None, :].contiguous()
+    else:
+        ql = torch.randint(0, N_LANES, (b, q, n), generator=gen,
+                           device=lane.device, dtype=torch.int32)
+    return ql, ql
 
 
 def same_lane_pairs(lane, active, query_lanes) -> int:
@@ -243,16 +268,26 @@ def kernel_phase(torch, idm, ref):
     gen.manual_seed(0)
     b_main = SWEEP["instances"] // 4
     n_main = SWEEP["slots"]
+    # the launch floor: one one-element in-place add, timed as the kernels
+    # are (no kernel can take less; the neighbor bound lies below it)
+    one = torch.zeros(1, device="cuda")
+    floor_ms = device_ms(lambda: one.add_(1.0))
+    log(f"launch floor: a one-element in-place add takes {floor_ms:.5f} ms")
     shapes = [
-        (b_main, n_main, 4), (b_main, n_main, 3), (b_main, n_main, 1),
-        (1024, 128, 4), (1024, 128, 1), (48, 512, 4),
+        (b_main, n_main, 4, "rows"), (b_main, n_main, 3, "rows"),
+        (b_main, n_main, 1, "own"), (b_main, n_main, 4, "lanes"),
+        (1024, 128, 4, "rows"), (1024, 128, 1, "own"), (48, 512, 4, "rows"),
+        (65536, 16, 4, "rows"), (65536, 16, 1, "own"), (2, 8193, 4, "rows"),
+        (2, 8193, 2, "lanes"),
     ]
     results = []
-    for b, n, q in shapes:
+    for b, n, q, mode in shapes:
         pos, lane, active = rand_world(gen, b, n)
-        ql = lane_tables_query(b, q, n, lane)
-        got = idm.neighbor_kernel(pos, lane, active, ql, veh_len=4.5)
-        want = ref.ref_neighbor_mq(pos, lane, active, ql, 4.5)
+        ql, asked = query_rows(gen, mode, b, q, n, lane)
+        n_rows = q if ql is None else None
+        got = idm.neighbor_kernel(pos, lane, active, ql, n_rows=n_rows,
+                                  veh_len=4.5)
+        want = ref.ref_neighbor_mq(pos, lane, active, ql, 4.5, n_rows=n_rows)
         torch.cuda.synchronize()
         for name, g, w in zip(("lead_idx", "lead_gap", "has_lead", "foll_idx",
                                "foll_gap", "has_foll"), got, want):
@@ -260,24 +295,29 @@ def kernel_phase(torch, idm, ref):
                 bad = int((g != w).sum())
                 raise AssertionError(
                     f"neighbor_kernel != ref_neighbor_mq on {name} at "
-                    f"B={b} N={n} Q={q} ({bad} elements differ)")
+                    f"B={b} N={n} Q={q} {mode} ({bad} elements differ)")
         err = max(float((g.float() - w.float()).abs().max()) for g, w in
                   zip(got, want))
         ms = device_ms(lambda: idm.neighbor_kernel(pos, lane, active, ql,
-                                                   veh_len=4.5))
-        plain_ms = device_ms(lambda: ref.ref_neighbor_mq(pos, lane, active,
-                                                         ql, 4.5), reps=2)
-        bytes_moved = b * n * (4 + 4 + 1) + b * q * n * 4 + b * q * n * 18
-        ops = 3 * same_lane_pairs(lane, active, ql)
+                                                   n_rows=n_rows, veh_len=4.5))
+        plain_ms = device_ms(lambda: ref.ref_neighbor_mq(
+            pos, lane, active, ql, 4.5, n_rows=n_rows), reps=2)
+        bytes_moved = (b * n * (4 + 4 + 1) + b * q * n * 18
+                       + (0 if ql is None else b * q * n * 4))
+        ops = 3 * same_lane_pairs(lane, active, asked)
         bound_ms, bound_by = bound(bytes_moved, ops)
-        results.append(dict(B=b, N=n, Q=q, max_abs_err=err, ms=ms,
+        results.append(dict(B=b, N=n, Q=q, rows=mode, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by))
-        log(f"neighbor_kernel B={b} N={n} Q={q}: bit-exact; kernel {ms:.5f} ms,"
-            f" plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+                            bound_by=bound_by, floor_ms=floor_ms))
+        bar = (f"; the bar {NEIGHBOR_BAR_MS} ms, the target "
+               f"{NEIGHBOR_TARGET_MS} ms" if (b, n, q, mode) ==
+               (b_main, n_main, 4, "rows") else "")
+        log(f"neighbor_kernel B={b} N={n} Q={q} {mode}: bit-exact; kernel "
+            f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}), launch floor {floor_ms:.5f} ms{bar}")
 
     idm_results = []
-    for b, n in ((b_main, n_main), (1024, 128), (48, 512)):
+    for b, n in ((b_main, n_main), (1024, 128), (48, 512), (65536, 16)):
         pos, lane, active = rand_world(gen, b, n)
 
         def rnd(lo, hi):
@@ -299,10 +339,10 @@ def kernel_phase(torch, idm, ref):
         bound_ms, bound_by = bound(bytes_moved, ops)
         idm_results.append(dict(B=b, N=n, max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by))
+                                bound_by=bound_by, floor_ms=floor_ms))
         log(f"idm_accel_kernel B={b} N={n}: max |err| {err:.3g} (tol 1e-6); "
             f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by})")
+            f"{bound_ms:.5f} ms ({bound_by}), launch floor {floor_ms:.5f} ms")
     return results, idm_results
 
 
@@ -545,6 +585,46 @@ def flash_phase(torch, fa, ref) -> list[dict]:
     return results
 
 
+def flash_margin(torch, fa, ref, draws: int = FLASH_MARGIN_DRAWS) -> dict:
+    """How often the bf16 kernel crosses its tolerance on large scores:
+    ``draws`` seeded draws of gemma2-2b's global shape at S 512 with q x 20
+    (scores of about N(0, 20^2), past the softcap of 50), each held
+    against ``ref_attention``. Reports the draws that cross rtol 2e-2,
+    atol 8e-3 and the largest ratio of |err| to the tolerance; the
+    committed checks are not loosened, and a crossing here fails nothing."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    b, s, h, kh, d, cap = 1, 512, 8, 4, 256, 50.0
+    tol = FLASH_TOL["bfloat16"]
+    crossed, worst = 0, 0.0
+    for _ in range(draws):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+        q, k, v = (q * 20.0).bfloat16(), k.bfloat16(), v.bfloat16()
+        got = fa.flash_attention(q, k, v, causal=True, softcap=cap).float()
+        want = ref.ref_attention(q, k, v, True, 0, cap).float()
+        ratio = float(((got - want).abs()
+                       / (tol["atol"] + tol["rtol"] * want.abs())).max())
+        crossed += ratio > 1.0
+        worst = max(worst, ratio)
+    log(f"flash_attention bf16 margin: {draws} draws of gemma2-2b global "
+        f"S={s} q x 20 (softcap {cap}): {crossed} cross the tolerance "
+        f"{tol}; the largest |err| / tolerance is {worst:.4f}")
+    return dict(draws=draws, crossed=crossed, max_ratio=worst)
+
+
+def rglru_decays(torch, gen, shape, decay: str):
+    """RG-LRU decays: ``mild`` U(0.7, 0.999) as the reference's tests draw
+    them, or ``strong`` exp(-exp(U(-8, 5))) with one entry in 16 exactly 0
+    and one in 16 exactly 1."""
+    if decay == "mild":
+        return torch.rand(shape, generator=gen, device="cuda") * 0.299 + 0.7
+    a = torch.exp(-torch.exp(torch.rand(shape, generator=gen, device="cuda")
+                             * 13 - 8))
+    pick = torch.rand(shape, generator=gen, device="cuda")
+    return torch.where(pick < 1 / 16, 0.0, torch.where(pick > 15 / 16, 1.0, a))
+
+
 def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
     """``rglru_linear_scan`` and ``wkv6`` against their plain versions on the
     card at recurrentgemma-2b's and rwkv6-3b's widths, two chunks against
@@ -557,50 +637,55 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
     gen.manual_seed(2)
     rg_results = []
     w = 2560
-    for b in (1, 4):
-        for s in (37, 512, 6000):
-            for dtype in ("bfloat16", "float32"):
-                dt = getattr(torch, dtype)
-                a = torch.rand((b, s, w), generator=gen, device="cuda") \
-                    * 0.299 + 0.7
-                x = torch.randn((b, s, w), generator=gen, device="cuda").to(dt)
-                h0 = torch.randn((b, w), generator=gen, device="cuda")
-                ys, hf = rg.rglru_linear_scan(a, x, h0)
-                want_ys, want_h = ref.ref_rglru(a, x, h0)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(ys.float(), want_ys,
-                                           **RGLRU_TOL[dtype])
-                torch.testing.assert_close(hf, want_h, rtol=1e-4, atol=1e-4)
-                err = max(float((ys.float() - want_ys).abs().max()),
-                          float((hf - want_h).abs().max()))
-                trials = 5 if s > 1024 else 21
-                ms = device_ms(lambda: rg.rglru_linear_scan(a, x, h0), 10,
-                               trials)
-                plain_ms = device_ms(lambda: ref.ref_rglru(a, x, h0), 1, 5)
-                bound_ms, bound_by = bound(
-                    b * s * w * (4 + 2 * x.element_size()) + 2 * b * w * 4,
-                    2 * b * s * w)
-                rg_results.append(dict(B=b, S=s, W=w, dtype=dtype,
-                                       max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms, bound_ms=bound_ms,
-                                       bound_by=bound_by))
-                log(f"rglru_linear_scan B={b} S={s} W={w} {dtype}: max |err| "
-                    f"{err:.3g} (tol {RGLRU_TOL[dtype]}, h_final 1e-4); "
-                    f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
-                    f"{bound_ms:.5f} ms ({bound_by})")
-    a = torch.rand((1, 512, 2560), generator=gen, device="cuda") * 0.2 + 0.8
-    x = torch.randn((1, 512, 2560), generator=gen, device="cuda")
-    h0 = torch.zeros((1, 2560), device="cuda")
-    y_all, h_all = rg.rglru_linear_scan(a, x, h0)
-    y1, h1 = rg.rglru_linear_scan(a[:, :200].contiguous(),
-                                  x[:, :200].contiguous(), h0)
-    y2, h2 = rg.rglru_linear_scan(a[:, 200:].contiguous(),
-                                  x[:, 200:].contiguous(), h1)
-    torch.testing.assert_close(torch.cat([y1, y2], 1), y_all, rtol=1e-5,
-                               atol=1e-5)
-    torch.testing.assert_close(h2, h_all, rtol=1e-5, atol=1e-5)
+    for b, s, decay in ((1, 37, "mild"), (1, 512, "mild"), (1, 6000, "mild"),
+                        (1, 6000, "strong"), (4, 37, "mild"),
+                        (4, 512, "mild"), (4, 6000, "mild")):
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            a = rglru_decays(torch, gen, (b, s, w), decay)
+            x = torch.randn((b, s, w), generator=gen, device="cuda").to(dt)
+            h0 = torch.randn((b, w), generator=gen, device="cuda")
+            ys, hf = rg.rglru_linear_scan(a, x, h0)
+            want_ys, want_h = ref.ref_rglru(a, x, h0)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(ys.float(), want_ys,
+                                       **RGLRU_TOL[dtype])
+            torch.testing.assert_close(hf, want_h, rtol=1e-4, atol=1e-4)
+            err = max(float((ys.float() - want_ys).abs().max()),
+                      float((hf - want_h).abs().max()))
+            trials = 5 if s > 1024 else 21
+            ms = device_ms(lambda: rg.rglru_linear_scan(a, x, h0), 10, trials)
+            plain_ms = device_ms(lambda: ref.ref_rglru(a, x, h0), 1, 5)
+            bound_ms, bound_by = bound(
+                b * s * w * (4 + 2 * x.element_size()) + 2 * b * w * 4,
+                2 * b * s * w)
+            main = (b, s, decay, dtype) == (1, 6000, "mild", "float32")
+            rg_results.append(dict(B=b, S=s, W=w, dtype=dtype, decay=decay,
+                                   max_abs_err=err, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by,
+                                   bound_share=bound_ms / ms))
+            bar = (f"; the bar {RGLRU_BAR_MS} ms, the target "
+                   f"{RGLRU_TARGET_MS} ms" if main else "")
+            log(f"rglru_linear_scan B={b} S={s} W={w} {dtype} {decay} decays:"
+                f" max |err| {err:.3g} (tol {RGLRU_TOL[dtype]}, h_final "
+                f"1e-4); kernel {ms:.5f} ms, {100 * bound_ms / ms:.2f}% of "
+                f"its bound, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms"
+                f" ({bound_by}){bar}")
+    for decay in ("mild", "strong"):
+        a = rglru_decays(torch, gen, (1, 512, 2560), decay)
+        x = torch.randn((1, 512, 2560), generator=gen, device="cuda")
+        h0 = torch.zeros((1, 2560), device="cuda")
+        y_all, h_all = rg.rglru_linear_scan(a, x, h0)
+        y1, h1 = rg.rglru_linear_scan(a[:, :200].contiguous(),
+                                      x[:, :200].contiguous(), h0)
+        y2, h2 = rg.rglru_linear_scan(a[:, 200:].contiguous(),
+                                      x[:, 200:].contiguous(), h1)
+        torch.testing.assert_close(torch.cat([y1, y2], 1), y_all, rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(h2, h_all, rtol=1e-5, atol=1e-5)
     log("rglru_linear_scan: S 512 in chunks of 200 and 312 through h0 equals "
-        "one scan (1e-5)")
+        "one scan (1e-5), mild and strong decays")
 
     rw_results = []
     b, h, kd, vd = 1, 40, 64, 64
@@ -1066,6 +1151,7 @@ def main() -> None:
 
     # 8. flash attention against its plain version
     fl_results = flash_phase(torch, fa, ref)
+    margin = flash_margin(torch, fa, ref)
 
     # 9. the recurrence kernels against their plain versions
     rg_results, rw_results = recurrence_phase(torch, rg, rw, ref)
@@ -1092,7 +1178,7 @@ def main() -> None:
     main_fl = next(r for r in fl_results if r["dtype"] == "bfloat16" and
                    r["S"] == 6000 and r["window"] == 0 and r["D"] == 256)
     main_rg = next(r for r in rg_results if r["dtype"] == "float32" and
-                   r["S"] == 6000 and r["B"] == 1)
+                   r["S"] == 6000 and r["B"] == 1 and r["decay"] == "mild")
     main_rw = next(r for r in rw_results if r["dtype"] == "float32" and
                    r["S"] == 6000 and r["decay"] == "mild")
     kernels.append(dict(
@@ -1105,7 +1191,7 @@ def main() -> None:
         ms=main_fl["ms"], plain_ms=main_fl["plain_ms"],
         bound_ms=main_fl["bound_ms"], bound_by=main_fl["bound_by"],
         library=main_fl["library"], library_ms=main_fl["library_ms"],
-        shapes=fl_results,
+        shapes=fl_results, bf16_margin=margin,
         serve=served["gemma2-2b"]))
     for name, source, replaces, main_row, rows, arch in (
             ("rglru_linear_scan", RGLRU_SOURCE,

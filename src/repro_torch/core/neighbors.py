@@ -17,8 +17,9 @@ implementations (``SimConfig.neighbor_impl``), all bit-for-bit equal:
     The hand-written multi-query CUDA kernel
     (:func:`repro_torch.kernels.idm.neighbor_kernel`, the counterpart of
     the reference's ``pallas``): one launch per table build (Q = lane
-    count) and one per single query (Q = 1). On CPU tensors it runs the
-    kernel's plain version.
+    count, row q querying lane q) and one per single query (Q = 1, the
+    vehicles' query lanes). On CPU tensors it runs the kernel's plain
+    version.
 
 The shared contract: lead = argmin over vehicles strictly ahead in the
 query lane, follower = argmin over vehicles strictly behind; exact
@@ -144,12 +145,9 @@ def _sort_tables(pos, lane, active, veh_len, n_lanes_total):
 
 
 def _cuda_tables(pos, lane, active, veh_len, n_lanes_total):
-    b, n = pos.shape
-    q = torch.arange(n_lanes_total, dtype=torch.int32, device=pos.device)
-    q = q[None, :, None].expand(b, n_lanes_total, n).contiguous()
     return NeighborTables(*neighbor_kernel(
-        pos.contiguous(), lane.contiguous(), active.contiguous(), q,
-        veh_len=veh_len,
+        pos.contiguous(), lane.contiguous(), active.contiguous(), None,
+        n_rows=n_lanes_total, veh_len=veh_len,
     ))
 
 

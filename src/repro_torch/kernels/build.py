@@ -1,6 +1,6 @@
 """Build the hand-written CUDA kernels at first use and load them with
-ctypes; check the tensors a wrapper hands them and the code a launch
-returns.
+ctypes; check the tensors a wrapper hands them (refusing any that needs a
+gradient: no kernel has a backward) and the code a launch returns.
 
 A ``csrc/<name>.cu`` source is compiled by ``nvcc`` for Hopper into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
@@ -10,8 +10,9 @@ seconds)::
          -Xcompiler -fPIC -o build/repro_torch_kernels/lib<name>-<hash>.so \\
          src/repro_torch/kernels/csrc/<name>.cu
 
-The library name carries a hash of its source, so an edited kernel is
-rebuilt and a stale one is never loaded. Output goes to
+The library name carries a hash of its source and of the headers in
+``csrc/`` (``*.cuh``) that sources include, so an edited kernel is rebuilt
+and a stale one is never loaded. Output goes to
 ``build/repro_torch_kernels/`` at the repository root (``.gitignore`` lists
 ``build/``).
 """
@@ -49,8 +50,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(name: str, lib: Path) -> None:
@@ -108,3 +111,16 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through kernel ``name``: grad
+    mode is on and an input requires grad. The kernels write their outputs
+    through raw pointers, so those outputs would carry no ``grad_fn`` and
+    the gradient would stop there without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            "grad. Train through the plain paths, attention_impl(\"xla\") "
+            "and recurrence_impl(\"plain\"), or call it under "
+            "torch.no_grad().")

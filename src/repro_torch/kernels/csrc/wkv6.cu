@@ -68,9 +68,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
 #include <climits>
 #include <type_traits>
+
+#include "lookback.cuh"  // the flags, the wait, the clear
 
 namespace {
 
@@ -257,7 +258,6 @@ struct Scratch {
   int* flag;
   int* ticket;
 };
-constexpr int AGG = 1, INCL = 2;
 
 struct Smem {
   float r[C][LA];       // r, then r . (decay from the start of its sub-chunk)
@@ -334,18 +334,6 @@ __device__ __forceinline__ void diag_half(Smem& sm, int q, int lane,
   }
 }
 
-__device__ __forceinline__ int ld_flag(const int* p) {
-  return *reinterpret_cast<volatile const int*>(p);
-}
-// f, or once it is 0 (nothing published yet) the flag at p when it is set
-__device__ __forceinline__ int wait_flag(const int* p, int f) {
-  for (unsigned spins = 0; f == 0; ++spins) {
-    if (spins == (1u << 26)) __trap();  // never: a lost chunk
-    __nanosleep(64);
-    f = ld_flag(p);
-  }
-  return f;
-}
 // This thread's 16 entries of a D x D state in the aggregate's fragment
 // layout: keys k0 and k0 + 8, values n0 + 8 x + 2 t4 and the next one.
 __device__ __forceinline__ void ld_frag(float (&d)[4][4], const float* m,
@@ -393,15 +381,10 @@ __device__ __forceinline__ void fold16(float (&acc)[4][4], float ap0,
     acc[i][3] = fmaf(ap1, d[i][3], acc[i][3]);
   }
 }
-__device__ __forceinline__ void set_flag(int* p, int v) {
-  *reinterpret_cast<volatile int*>(p) = v;
-}
 
 // Clears the flags and the counter of one call.
-__global__ void wkv6_fwd_clear(int* __restrict__ flag, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i <= n;
-       i += gridDim.x * blockDim.x)
-    flag[i] = 0;
+__global__ void wkv6_fwd_clear(int* __restrict__ flag, int64_t n) {
+  clear_flags(flag, n);
 }
 
 // One chunk of one (b, h): its aggregate, published at once; its start state
@@ -755,8 +738,7 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   constexpr int E = 16 / sizeof(T);  // values in 16 bytes
   const int vec = K % E == 0 && V % E == 0 && aligned16(r) && aligned16(k) &&
                   aligned16(v) && aligned16(w) && aligned16(y);
-  wkv6_fwd_clear<<<(int)std::min<int64_t>((n + NT) / NT, 1024), NT, 0,
-                   stream>>>(flags, (int)n);
+  wkv6_fwd_clear<<<clear_blocks(n, NT), NT, 0, stream>>>(flags, n);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(wkv6_fwd_chunk<T>,

@@ -3,11 +3,13 @@
 ``repro/kernels/flash_attention.py::flash_attention``.
 
 On a CPU tensor ``flash_attention`` runs the kernel's plain PyTorch version
-(:func:`repro_torch.kernels.ref.ref_attention`). On a CUDA tensor it checks
-device, dtype, shape, contiguity and 16-byte alignment, allocates the
-output with ``torch.empty``, launches a kernel on the tensors' card (under
-a device guard) and its current stream without synchronising, raises if
-the launch was refused, and adds one to ``launches["flash_attention"]``.
+(:func:`repro_torch.kernels.ref.ref_attention`). On a CUDA tensor it
+refuses an input that needs a gradient (``build.refuse_grad``: no kernel
+has a backward), checks device, dtype, shape, contiguity and 16-byte
+alignment, allocates the output with ``torch.empty``, launches a kernel
+on the tensors' card (under a device guard) and its current stream
+without synchronising, raises if the launch was refused, and adds one to
+``launches["flash_attention"]``.
 There is no fallback from a CUDA tensor to the plain version, nor from one
 kernel to the other.
 
@@ -27,7 +29,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import check_tensor, launched, symbol
+from repro_torch.kernels.build import (check_tensor, launched, refuse_grad,
+                                       symbol)
 from repro_torch.kernels.ref import ref_attention
 
 #: launch count; only a real kernel launch increments it
@@ -59,6 +62,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return ref_attention(q, k, v, causal, window, softcap, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != d:

@@ -38,28 +38,41 @@ def reset_launches() -> None:
     launches.update(dict.fromkeys(launches, 0))
 
 
-def neighbor_kernel(pos, lane, active, query_lanes, *, veh_len: float = 4.5):
+def neighbor_kernel(pos, lane, active, query_lanes, *, n_rows=None,
+                    veh_len: float = 4.5):
     """Multi-query lead+follower search.
 
     ``pos`` f32, ``lane`` i32, ``active`` bool, all ``[B, N]``;
-    ``query_lanes`` i32 ``[B, Q, N]``. Returns ``(lead_idx, lead_gap,
-    has_lead, foll_idx, foll_gap, has_foll)``, each ``[B, Q, N]``,
-    bit-exact with :func:`repro_torch.kernels.ref.ref_neighbor_mq`.
+    ``query_lanes`` i32 ``[B, Q, N]``, or ``None`` with ``n_rows=Q``: row
+    ``q`` then queries lane ``q`` for every vehicle (a per-lane table).
+    Returns ``(lead_idx, lead_gap, has_lead, foll_idx, foll_gap,
+    has_foll)``, each ``[B, Q, N]``, bit-exact with
+    :func:`repro_torch.kernels.ref.ref_neighbor_mq`. On the card, N up to
+    8192 runs the one-block sort and search, larger N the all-pairs kernel
+    (``csrc/idm.cu``); one launch either way.
     """
+    if (query_lanes is None) == (n_rows is None):
+        raise ValueError("neighbor_kernel takes query_lanes or n_rows, not "
+                         "both or neither")
     if pos.device.type == "cpu":
-        return ref_neighbor_mq(pos, lane, active, query_lanes, veh_len)
+        return ref_neighbor_mq(pos, lane, active, query_lanes, veh_len,
+                               n_rows=n_rows)
     if pos.device.type != "cuda":
         raise ValueError(f"neighbor_kernel runs on cpu or cuda, not {pos.device}")
     b, n = pos.shape
-    q = query_lanes.shape[1] if query_lanes.dim() == 3 else -1
     dev = pos.device
     _check("pos", pos, torch.float32, (b, n), dev)
     _check("lane", lane, torch.int32, (b, n), dev)
     _check("active", active, torch.bool, (b, n), dev)
-    _check("query_lanes", query_lanes, torch.int32, (b, q, n), dev)
-    if b > 65535 or q > 65535:
-        raise ValueError("neighbor_kernel takes at most 65535 instances and "
-                         "65535 query rows")
+    if query_lanes is None:
+        q = int(n_rows)
+        ql_ptr = None
+    else:
+        q = query_lanes.shape[1] if query_lanes.dim() == 3 else -1
+        _check("query_lanes", query_lanes, torch.int32, (b, q, n), dev)
+        ql_ptr = query_lanes.data_ptr()
+    if q < 0:
+        raise ValueError(f"neighbor_kernel takes Q >= 0 rows, got {q}")
     shape = (b, q, n)
     li = torch.empty(shape, dtype=torch.int32, device=dev)
     lg = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -70,8 +83,8 @@ def neighbor_kernel(pos, lane, active, query_lanes, *, veh_len: float = 4.5):
     fn = symbol("idm", "neighbor_mq_launch",
              [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P])
     with torch.cuda.device(dev):   # the runtime launches on its current card
-        err = fn(pos.data_ptr(), lane.data_ptr(), active.data_ptr(),
-                 query_lanes.data_ptr(), b, q, n, veh_len,
+        err = fn(pos.data_ptr(), lane.data_ptr(), active.data_ptr(), ql_ptr,
+                 b, q, n, veh_len,
                  li.data_ptr(), lg.data_ptr(), lh.data_ptr(),
                  fi.data_ptr(), fg.data_ptr(), fh.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -100,8 +113,6 @@ def idm_accel_kernel(pos, vel, lane, active, v0, T, a_max, b_comf, s0, *,
         ("s0", s0, torch.float32),
     ):
         _check(name, t, dt, (b, n), dev)
-    if b > 65535:
-        raise ValueError("idm_accel_kernel takes at most 65535 instances")
     acc = torch.empty((b, n), dtype=torch.float32, device=dev)
     fn = symbol("idm", "idm_accel_launch", [_P] * 9 + [_I, _I, _F, _P, _P])
     with torch.cuda.device(dev):

@@ -9,7 +9,8 @@ per-instance functions under ``vmap`` become one batched call here.
     vector per instance.
 ``ref_neighbor_mq``
     The multi-query contract of ``neighbor_kernel``: ``[B, Q, N]`` query
-    lanes, one ``neighbor_info`` per query row.
+    lanes (or Q rows, row q asking for lane q), one ``neighbor_info`` per
+    query row.
 ``ref_idm_accel``
     Same-lane lead search fused with the IDM formula
     (``repro/kernels/ref.py::ref_idm_accel``), batched.
@@ -69,13 +70,16 @@ def neighbor_info(pos, lane, active, veh_len, query_lane):
     return lead_idx, lead_gap, has_lead, foll_idx, foll_gap, has_foll
 
 
-def ref_neighbor_mq(pos, lane, active, query_lanes, veh_len):
+def ref_neighbor_mq(pos, lane, active, query_lanes, veh_len, *,
+                    n_rows=None):
     """``[B, N]`` world + ``[B, Q, N]`` query lanes → six ``[B, Q, N]``
-    tensors (lead idx/gap/has, follower idx/gap/has)."""
-    per_q = [
-        neighbor_info(pos, lane, active, veh_len, query_lanes[:, q])
-        for q in range(query_lanes.shape[1])
-    ]
+    tensors (lead idx/gap/has, follower idx/gap/has). With ``query_lanes``
+    ``None``, ``n_rows`` rows: row ``q`` queries lane ``q``."""
+    if query_lanes is None:
+        rows = [torch.full_like(lane, q) for q in range(n_rows)]
+    else:
+        rows = [query_lanes[:, q] for q in range(query_lanes.shape[1])]
+    per_q = [neighbor_info(pos, lane, active, veh_len, r) for r in rows]
     return tuple(torch.stack(f, dim=1) for f in zip(*per_q))
 
 

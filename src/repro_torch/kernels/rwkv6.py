@@ -2,14 +2,15 @@
 ``repro/kernels/rwkv6.py::wkv6``.
 
 On a CPU tensor ``wkv6`` runs the kernel's plain PyTorch version
-(:func:`repro_torch.kernels.ref.ref_wkv6`). On a CUDA tensor it checks
-device, dtype, shape and contiguity, allocates the outputs and the chunked
-form's scratch (each chunk's aggregate, inclusive state and flag, and the
-counter that orders the blocks) with ``torch.empty``, launches the kernels
-on the tensors' card (under a device guard) and its current stream without
-synchronising, raises if a launch was refused, and adds one to
-``launches["wkv6"]``: one per call, however many device kernels the call
-runs. There is no fallback from a CUDA tensor to the plain version.
+(:func:`repro_torch.kernels.ref.ref_wkv6`). On a CUDA tensor it refuses
+an input that needs a gradient (``build.refuse_grad``: no kernel has a
+backward), checks device, dtype, shape and contiguity, allocates the
+outputs and the chunked form's scratch (each chunk's aggregate, inclusive
+state and flag, and the counter that orders the blocks) with
+``torch.empty``, launches the kernels on the tensors' card (under a device
+guard) and its current stream without synchronising, raises if a launch
+was refused, and adds one to ``launches["wkv6"]``: one per call, however
+many device kernels the call runs. There is no fallback from a CUDA tensor to the plain version.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import check_tensor, launched, symbol
+from repro_torch.kernels.build import (check_tensor, launched, refuse_grad,
+                                       symbol)
 from repro_torch.kernels.ref import ref_wkv6
 
 #: launch count; only a real kernel launch increments it
@@ -51,6 +53,7 @@ def wkv6(r, k, v, w, u, s0):
         return y.to(v.dtype), state
     if v.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cpu or cuda, not {v.device}")
+    refuse_grad("wkv6", r, k, v, w, u, s0)
     if v.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"v must be bfloat16 or float32, got {v.dtype}")
     if r.dim() != 4 or v.dim() != 4:

@@ -58,7 +58,8 @@ def on(dev, *arrays):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,q", [(256, 128, 4), (256, 128, 3), (256, 128, 1),
-                                   (48, 512, 4), (3, 200, 3), (2, 5, 2)])
+                                   (48, 512, 4), (3, 200, 3), (2, 5, 2),
+                                   (1, 9000, 2)])  # 9000: the all-pairs kernel
 def test_neighbor_kernel_matches_plain(cuda, b, n, q):
     pos, lane, active = rand_worlds(b + n + q, b, n)
     ql = np.random.default_rng(q).integers(0, L, (b, q, n)).astype(np.int32)
@@ -85,6 +86,77 @@ def test_idm_accel_kernel_matches_plain(cuda, b, n):
 
     args = on(cuda, pos, u(0.0, 35.0), lane, active, u(20.0, 35.0),
               u(0.8, 1.8), u(1.0, 2.5), u(1.5, 3.0), u(1.0, 2.5))
+    got = idm.idm_accel_kernel(*args, veh_len=4.5)
+    want = ref.ref_idm_accel(*args, 4.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,q", [
+    (256, 128, 4), (256, 128, 3), (1024, 128, 4), (48, 512, 4), (3, 200, 6),
+    (2, 5, 2), (2, 2000, 4), (1, 8192, 4),  # 2000, 8192: 2 and 8 keys a thread
+    (2, 8193, 4),  # past the sort's 8192 slots: the all-pairs kernel
+])
+def test_neighbor_kernel_rows_mode_matches_plain(cuda, b, n, q):
+    """Row q queries lane q (a table build, no query-lane tensor); rows past
+    the lanes in use find nothing."""
+    pos, lane, active = on(cuda, *rand_worlds(b + n + q + 1, b, n))
+    before = idm.launches["neighbor_kernel"]
+    got = idm.neighbor_kernel(pos, lane, active, None, n_rows=q)
+    want = ref.ref_neighbor_mq(pos, lane, active, None, 4.5, n_rows=q)
+    torch.cuda.synchronize()
+    assert idm.launches["neighbor_kernel"] == before + 1
+    for name, g, w in zip(FIELDS, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def collapse_world():
+    """Two vehicles ahead of vehicle 0 whose gaps to it round to one f32
+    value, the farther in the lower slot; two behind vehicle 3 alike
+    (``tests/test_torch_neighbor_rows.py`` holds the kernel's algorithm
+    against the reference on the same world)."""
+    e = np.float32(2.0**-24)
+    g = np.float32(2.0**-20)
+    pos = np.array([[e, 1.0 + 3 * 2.0**-23, 1.0 + 2.0**-22, 16.0, 1.5 * g,
+                     2.5 * g, 5.0, 5.0]], np.float32)
+    lane = np.array([[0, 0, 0, 1, 1, 1, 2, 2]], np.int32)
+    return pos, lane, np.ones((1, 8), bool)
+
+
+@pytest.mark.cuda
+def test_neighbor_kernel_takes_the_lowest_slot_where_gaps_round_together(
+        cuda):
+    pos, lane, active = on(cuda, *collapse_world())
+    ql = lane[:, None].contiguous()
+    got = idm.neighbor_kernel(pos, lane, active, ql)
+    want = ref.ref_neighbor_mq(pos, lane, active, ql, 4.5)
+    torch.cuda.synchronize()
+    assert int(want[0][0, 0, 0]) == 1 and int(want[3][0, 0, 3]) == 4
+    for name, g, w in zip(FIELDS, got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_kernels_take_more_than_65535_instances(cuda):
+    """B runs along gridDim.x: 65536 instances and more, in one launch each
+    (the rows mode, the own-lane query and the IDM kernel)."""
+    b, n = 65536 + 7, 12
+    pos, lane, active = on(cuda, *rand_worlds(11, b, n))
+    for ql, q in ((None, L), (lane[:, None].contiguous(), None)):
+        got = idm.neighbor_kernel(pos, lane, active, ql, n_rows=q)
+        want = ref.ref_neighbor_mq(pos, lane, active, ql, 4.5, n_rows=q)
+        torch.cuda.synchronize()
+        for name, g, w in zip(FIELDS, got, want):
+            assert torch.equal(g, w), (q, name)
+    rng = np.random.default_rng(12)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, (b, n)).astype(np.float32)
+
+    args = (pos, *on(cuda, u(0.0, 35.0)), lane, active,
+            *on(cuda, u(20.0, 35.0), u(0.8, 1.8), u(1.0, 2.5), u(1.5, 3.0),
+                u(1.0, 2.5)))
     got = idm.idm_accel_kernel(*args, veh_len=4.5)
     want = ref.ref_idm_accel(*args, 4.5)
     torch.cuda.synchronize()
@@ -369,6 +441,74 @@ def test_rglru_kernel_chunked_equals_whole(cuda, split):
     torch.testing.assert_close(h2, h_all, rtol=1e-5, atol=1e-5)
 
 
+def strong_rglru_inputs(seed, b, s, w, strong=True):
+    """numpy a, x, h0 (f32); with ``strong`` the decays are
+    ``exp(-exp(U(-8, 5)))`` with about one entry in 16 exactly 0 and one in
+    16 exactly 1, else ``U(0.7, 0.999)``. The same function is in
+    ``tests/test_torch_rglru_chunked.py``, which holds the kernel's chunked
+    arithmetic against the reference on the CPU with these inputs."""
+    rng = np.random.default_rng(seed)
+    if strong:
+        a = np.exp(-np.exp(rng.uniform(-8.0, 5.0, (b, s, w))))
+        pick = rng.uniform(size=a.shape)
+        a[pick < 1 / 16] = 0.0
+        a[pick > 15 / 16] = 1.0
+    else:
+        a = rng.uniform(0.7, 0.999, (b, s, w))
+    x = rng.standard_normal((b, s, w))
+    h0 = rng.standard_normal((b, w))
+    return a.astype(np.float32), x.astype(np.float32), h0.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("edge", ["0", "1", "T-1", "T", "T+1", "2T-1", "2T",
+                                  "2T+1", "300"])
+def test_rglru_kernel_strong_decays_at_chunk_edges(cuda, edge, dtype):
+    """Strong decays with exact zeros and ones, S at the edges of the
+    kernel's chunks of T steps, W a ragged lane tile (100) and whole ones
+    (256): the composed carries hold the sequential recurrence's
+    tolerances; where a is 0 the state restarts at x exactly."""
+    t = rg.CHUNK
+    s = {"0": 0, "1": 1, "T-1": t - 1, "T": t, "T+1": t + 1, "2T-1": 2 * t - 1,
+         "2T": 2 * t, "2T+1": 2 * t + 1, "300": 300}[edge]
+    for w in (100, 256):
+        a, x, h0 = (torch.from_numpy(z).to(cuda) for z in
+                    strong_rglru_inputs(s + w + t, 2, s, w))
+        x = x.to(dtype)
+        before = rg.launches["rglru_linear_scan"]
+        ys, hf = rg.rglru_linear_scan(a, x, h0)
+        want_ys, want_h = ref.ref_rglru(a, x, h0)
+        torch.cuda.synchronize()
+        assert rg.launches["rglru_linear_scan"] == before + 1
+        assert ys.shape == (2, s, w) and ys.dtype == dtype
+        torch.testing.assert_close(ys.float(), want_ys, **RGLRU_TOL[dtype])
+        torch.testing.assert_close(hf, want_h, rtol=1e-4, atol=1e-4)
+        if dtype == torch.float32:
+            assert torch.equal(ys[a == 0.0], x[a == 0.0])
+        if s == 0:
+            assert torch.equal(hf, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strong", [True, False])
+@pytest.mark.parametrize("split", [100, 1, 65])
+def test_rglru_kernel_two_chunks_through_h0(cuda, split, strong):
+    """S 300 cut at a length that is not a multiple of the chunk: the second
+    call starts from the first one's h_final (1e-5, as one scan)."""
+    a, x, _ = (torch.from_numpy(z).to(cuda) for z in
+               strong_rglru_inputs(8, 1, 300, 2560, strong))
+    h0 = torch.zeros((1, 2560), device=cuda)
+    y_all, h_all = rg.rglru_linear_scan(a, x, h0)
+    y1, h1 = rg.rglru_linear_scan(a[:, :split].contiguous(),
+                                  x[:, :split].contiguous(), h0)
+    y2, h2 = rg.rglru_linear_scan(a[:, split:].contiguous(),
+                                  x[:, split:].contiguous(), h1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y_all, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h2, h_all, rtol=1e-5, atol=1e-5)
+
+
 def wkv6_inputs(seed, dev, dtype, b, s, h, dk, dv):
     rng = np.random.default_rng(seed)
 
@@ -520,6 +660,34 @@ def test_recurrence_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="64"):
         rw.wkv6(r2, k2, v2, w2, u2, s2)
     assert (rg.launches["rglru_linear_scan"], rw.launches["wkv6"]) == before
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_inputs_that_need_a_gradient(cuda):
+    """No kernel has a backward: under autograd each CUDA wrapper raises
+    (launching nothing) instead of returning an output without a
+    ``grad_fn``; under ``torch.no_grad()`` it launches."""
+    q, k, v = rand_qkv(0, cuda, torch.float32, 1, 16, 16, 2, 2, 64)
+    a, x, h0 = rglru_inputs(0, cuda, torch.float32, 1, 8, 64)
+    wargs = wkv6_inputs(0, cuda, torch.float32, 1, 8, 2, 16, 16)
+    calls = (
+        ("flash_attention", fa, lambda *z: fa.flash_attention(*z), [q, k, v]),
+        ("rglru_linear_scan", rg, lambda *z: rg.rglru_linear_scan(*z),
+         [a, x, h0]),
+        ("wkv6", rw, lambda *z: rw.wkv6(*z), wargs),
+    )
+    for name, mod, call, args in calls:
+        for i in range(len(args)):
+            grad_args = [t.clone().requires_grad_(j == i)
+                         for j, t in enumerate(args)]
+            before = mod.launches[name]
+            with pytest.raises(RuntimeError, match="no backward"):
+                call(*grad_args)
+            assert mod.launches[name] == before, (name, i)
+        with torch.no_grad():
+            call(*grad_args)
+        torch.cuda.synchronize()
+        assert mod.launches[name] == before + 1, name
 
 
 def recurrent_card_model(cuda, arch, seed):
