@@ -33,6 +33,30 @@ Phases, in order; any failure raises and exits non-zero:
 7. profile — host ms per step of one sweep group, and under
    ``torch.profiler`` the device's busy time, its share of the profiled
    wall time and of the unprofiled step, and the heaviest kernels;
+7a. record — the recording sweep in-process on the card (64 instances, 128
+   slots, 400 steps in chunks of 100, the four-scenario mix, grouped,
+   ``cuda`` neighbors, a row every 10 steps, 8 recorded slots): a
+   fault-free ``run_supervised`` with a ``DatasetWriter`` and checkpoints
+   (neighbor launches = 2 x chunk_steps x its batched chunk calls), and the
+   same sweep under ``FaultModel.random_model`` (crashes, hangs,
+   stragglers, one poison instance; 8 workers) killed after chunk 2 and
+   resumed from its checkpoint and journal; the final states and every
+   array of every shard must agree, bit for bit (or, where the card gives
+   other bits, naming the field, within the CPU sweep tests' tolerance),
+   on every instance but the poison one, which must be quarantined; and
+   recording off (phase 6's ``cuda`` run of the same sweep) must give the
+   same final state as recording on;
+7b. pipeline — the gate: ``python -m repro_torch.launch.controller
+   --chaos-kills 2`` over the full-size recording sweep (1024 instances,
+   128 slots, 1200 steps in chunks of 200, the four-scenario mix, grouped,
+   ``cuda`` neighbors, 8 workers, crash 0.1, hang 0.05, straggler 0.05,
+   one poison instance, a row every 10 steps, 8 slots, shards of 64): the
+   controller must exit 0 with eligible completion 1.0, ``verify_shards``
+   must repair nothing, the dataset must hold the 1023 other instances
+   once each, and the final worker's neighbor launches must equal 2 x
+   chunk_steps x its batched chunk calls; prints the wall time beside
+   phase 4's, chunks, restarts, faults by kind, the host seconds of each
+   chunk's checkpoint save and shard drain, and the dataset's bytes;
 8. attention — ``flash_attention`` against ``ref_attention`` at gemma2-2b's
    prefill shapes (B 1, H 8, K 4, D 256, S 37/512/6000, global and local
    window 4096, softcap 50), once more at S 512 with q scaled by 20 so that
@@ -48,9 +72,10 @@ Phases, in order; any failure raises and exits non-zero:
    compiled ``flex_attention`` (softcap ``score_mod``, causal/window block
    mask, GQA) for the other shapes in bf16 (each held against
    ``ref_attention`` first; the port never calls either); then 64 seeded
-   q x 20 draws at gemma2-2b's global S 512 shape in bf16: how many cross
-   the bf16 tolerance and the largest ratio of error to tolerance
-   (reported, not enforced);
+   q x 20 draws at gemma2-2b's global S 512 shape in bf16: none may cross
+   the bf16 tolerance; prints the largest ratio of error to tolerance, and
+   the same for a plain attention that rounds p to bf16 before
+   normalising (where the first Hopper build rounded it);
 9. recurrences — ``rglru_linear_scan`` against ``ref_rglru`` (B 1 and 4,
    W 2560, S 37/512/6000 with mild decays and at B 1, S 6000 strong ones
    with exact zeros and ones; ys rtol 2e-2 atol 2e-3 in bf16, 1e-5 in f32,
@@ -60,8 +85,8 @@ Phases, in order; any failure raises and exits non-zero:
    S 37/512/4096/6000 with mild decays and S 6000 with strong ones that
    include exact zeros and ones; 5e-2 in bf16, 1e-4 in f32, the state 1e-3),
    x or r/k/v in bf16 and f32, the tolerances of ``tests/test_kernels.py``;
-   two chunks through ``h0``/``s0`` equal one; kernel, plain version and
-   bound timed, each wkv6 line with its share of the bound and the main
+   two chunks through ``h0``/``s0`` equal one; kernel, plain version (one
+   trial at S > 1024: a Python loop) and bound timed, each wkv6 line with its share of the bound and the main
    shape's with its bar of 1.0 ms and target of 0.30 ms (no single PyTorch
    call computes either recurrence);
 
@@ -112,6 +137,17 @@ MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 N_LANES = 4                       # 3 main lanes + ramp, as the sweep
 SWEEP = dict(instances=1024, slots=128, steps=1200, chunk_steps=400)
+# phase 7a: a fault-free and a faulted, killed and resumed recording sweep
+RECORD = dict(instances=64, slots=128, steps=400, chunk_steps=100,
+              record_every=10, k_slots=8, workers=8, shard_size=16, poison=37)
+# phase 7b: the controller over the full-size recording sweep, chunks of 200
+# steps (six chunks, so both chaos kills land mid-run), 8 workers (the
+# paper's instances per node)
+PIPELINE = dict(instances=1024, slots=128, steps=1200, chunk_steps=200,
+                workers=8, fail_prob=0.1, hang_prob=0.05, straggler_prob=0.05,
+                poison=517, record_every=10, record_slots=8, shard_size=64,
+                chaos_kills=2, timeout_s=900)
+WORK = ROOT / "build" / "chip_smoke_run"  # checkpoints, datasets, journals
 SOURCE = "src/repro_torch/kernels/csrc/idm.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 RGLRU_SOURCE = "src/repro_torch/kernels/csrc/rglru.cu"
@@ -143,6 +179,10 @@ WKV6_TOL = {"bfloat16": dict(rtol=5e-2, atol=5e-2),
 # exp(-exp(U(-8, 5))) with one entry in 16 exactly 0 and one in 16 exactly 1
 WKV6_DRAWS = ((37, "mild"), (512, "mild"), (4096, "mild"), (6000, "mild"),
               (6000, "strong"))
+# trials of the plain recurrences (Python loops over S, 10^3-10^4 times the
+# kernels' time) at S > 1024: each trial waits out a sleep as long as the
+# loop's enqueue, so one trial there keeps phase 9 inside the time limit
+PLAIN_LOOP_TRIALS = 1
 # the main shape's f32 time that the chunked kernel must and should reach
 WKV6_BAR_MS, WKV6_TARGET_MS = 1.0, 0.30
 # the same for the neighbor kernel's table build at the sweep's shape (B 256,
@@ -426,6 +466,306 @@ def profile_phase(torch) -> dict:
     return out
 
 
+def rows_equal(torch, a, b, keep, what: str) -> list[str]:
+    """Hold every ``[N]`` leaf of two states (or shard row dicts) equal on
+    the rows ``keep``: bit for bit, or, where the card gives other bits,
+    within the CPU sweep tests' tolerance (rtol 1e-5; atol 1e-3 for
+    positions, 1e-4 otherwise) for floats, and exactly for everything
+    else. Returns the leaves that were not bit-equal."""
+    from repro_torch.ckpt.io import flatten_with_paths
+
+    la, lb = flatten_with_paths(a), flatten_with_paths(b)
+    pa, pb = [p for p, _ in la], [p for p, _ in lb]
+    if pa != pb:
+        raise AssertionError(f"{what}: leaves differ: {sorted(set(pa) ^ set(pb))}"
+                             f" ({len(pa)} against {len(pb)})")
+    loose = []
+    for (path, x), (_, y) in zip(la, lb):
+        if x.dim() == 0:
+            continue
+        x, y = x[keep], y[keep]
+        if torch.equal(x, y):
+            continue
+        loose.append(path)
+        if not x.is_floating_point():
+            raise AssertionError(f"{what}: {path} differs")
+        torch.testing.assert_close(
+            x, y, rtol=1e-5, atol=1e-3 if path.endswith("pos") else 1e-4,
+            msg=lambda m: f"{what}: {path}: {m}")
+    if loose:
+        log(f"{what}: not bit-equal, held within the CPU tolerance: {loose}")
+    return loose
+
+
+def shard_rows(torch, root) -> dict:
+    """Every instance's row of every array of a dataset, by instance id."""
+    from repro_torch.data.shards import ShardedDataset
+
+    rows = {}
+    for z in ShardedDataset.load(str(root)).iter_shards():
+        for j, i in enumerate(z["instance"]):
+            rows[int(i)] = {k: torch.from_numpy(v[j:j + 1])
+                            for k, v in z.items()}
+    return rows
+
+
+def record_phase(torch, idm, plain) -> dict:
+    """Phase 7a: the recording, checkpointed, supervised sweep in-process.
+
+    A fault-free ``run_supervised`` with a ``DatasetWriter`` and
+    checkpoints, and the same sweep under ``FaultModel.random_model``
+    (crashes, hangs, stragglers, one poison instance) killed after chunk
+    2 and resumed from its checkpoint and journal: their final states and
+    every array of every shard must agree on every instance that the
+    faulted run did not quarantine, and the poison instance must be
+    reported quarantined. Recording on and off must give the same final
+    simulator state, bit for bit: ``plain`` is phase 6's ``cuda`` run of
+    the same sweep without recording (in one chunk of 400 steps; the chunk
+    size changes no bit)."""
+    import shutil
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core.fault import FaultModel
+    from repro_torch.core.fleet import RetryPolicy, RunJournal, run_supervised
+    from repro_torch.core.record import RecordConfig
+    from repro_torch.core.scenario import SimConfig
+    from repro_torch.core.scenarios import list_scenarios
+    from repro_torch.core.sweep import SweepConfig, SweepRunner
+    from repro_torch.data.shards import DatasetWriter
+
+    r = RECORD
+    work = WORK / "record"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = SweepConfig(
+        n_instances=r["instances"], steps_per_instance=r["steps"],
+        chunk_steps=r["chunk_steps"], seed=0,
+        sim=SimConfig(n_slots=r["slots"], neighbor_impl="cuda"),
+        scenario_mix=tuple(list_scenarios()), dispatch="grouped",
+        record=RecordConfig(record_every=r["record_every"],
+                            k_slots=r["k_slots"]))
+    n_chunks = r["steps"] // r["chunk_steps"] * 3
+
+    def runner(c=cfg):
+        return SweepRunner(c, device="cuda",
+                           workers_per_device=r["workers"])
+
+    def writer(name):
+        return DatasetWriter(str(work / name), cfg,
+                             shard_size=r["shard_size"])
+
+    # the first seed whose schedule crashes, hangs and straggles a worker
+    # in chunk 0, where every instance runs (a fault on a worker whose
+    # instances are all held or done leaves no event)
+    for seed in range(1000):
+        fm = FaultModel.random_model(
+            r["workers"], n_chunks, 0.1, hang_prob=0.05, straggler_prob=0.05,
+            poison_instances=(r["poison"],), seed=seed)
+        if fm.plan.get(0) and fm.hangs.get(0) and fm.stragglers.get(0):
+            break
+    policy = RetryPolicy(max_retries=2)
+
+    idm.reset_launches()
+    t0 = time.perf_counter()
+    run = runner()
+    w = writer("clean_ds")
+    clean, info = run_supervised(
+        run, ckpt=CheckpointManager(str(work / "clean_ck")), writer=w)
+    w.finalize(fault_info=info)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    launches = idm.launches["neighbor_kernel"]
+    want = 2 * r["chunk_steps"] * run.group_calls
+    if launches != want or info["completion_rate"] != 1.0:
+        raise AssertionError(f"clean recording run: completion "
+                             f"{info['completion_rate']}, neighbor_kernel "
+                             f"launched {launches} times, expected {want}")
+
+    t0 = time.perf_counter()
+    ck = CheckpointManager(str(work / "fault_ck"))
+    jr = RunJournal(str(work / "fault_ck" / "journal.jsonl"))
+    w = writer("fault_ds")
+    _, first = run_supervised(runner(), fm, policy, ckpt=ck, writer=w,
+                              journal=jr, max_chunks=3)
+    del w  # the kill: buffered instances are lost with the process
+    w = writer("fault_ds")
+    faulted, info_f = run_supervised(runner(), fm, policy, ckpt=ck, writer=w,
+                                     journal=jr)
+    w.finalize(fault_info=info_f)
+    torch.cuda.synchronize()
+    fault_s = time.perf_counter() - t0
+    events = RunJournal.read(jr.path)
+    kinds = [e.get("fault", e["kind"]) for e in events]
+    for kind in ("crash", "hang", "straggler", "poison", "quarantine",
+                 "resume"):
+        if kind not in kinds:
+            raise AssertionError(f"faulted recording run: no {kind} event")
+    if (info_f["quarantined"] != [r["poison"]]
+            or info_f["eligible_completion_rate"] != 1.0):
+        raise AssertionError(f"faulted run: quarantined "
+                             f"{info_f['quarantined']}, eligible completion "
+                             f"{info_f['eligible_completion_rate']}")
+    keep = torch.ones(r["instances"], dtype=torch.bool, device="cuda")
+    keep[r["poison"]] = False
+    loose = rows_equal(torch, clean, faulted, keep, "record: final state")
+
+    a, b = shard_rows(torch, work / "clean_ds"), shard_rows(torch, work / "fault_ds")
+    ids = sorted(set(range(r["instances"])) - {r["poison"]})
+    if sorted(a) != list(range(r["instances"])) or sorted(b) != ids:
+        raise AssertionError(f"datasets hold {len(a)} and {len(b)} instances")
+    for i in ids:
+        loose += rows_equal(torch, a[i], b[i], slice(None), f"record: shard row {i}")
+
+    if (plain.horizon.shape != clean.horizon.shape
+            or not torch.equal(plain.horizon, clean.horizon)):
+        raise AssertionError("phase 6's sweep is not this phase's sweep")
+    states_equal(torch, plain.sim, clean.sim)
+    states_equal(torch, plain.metrics, clean.metrics)
+    log(f"record: {r['instances']} instances x {r['steps']} steps, "
+        f"{r['slots']} slots, chunks of {r['chunk_steps']}, 4-scenario mix, "
+        f"grouped, cuda impl, every {r['record_every']} steps, "
+        f"{r['k_slots']} slots: fault-free run {clean_s:.3f} s "
+        f"({info['chunks_run']} chunks, neighbor_kernel launches {launches} "
+        f"= 2 x {r['chunk_steps']} x {run.group_calls}); faulted run (fault "
+        f"seed {seed}: {kinds.count('crash')} crash, {kinds.count('hang')} "
+        f"hang, {kinds.count('straggler')} straggler, {kinds.count('poison')}"
+        f" poison events; killed after {first['chunks_run']} chunks, "
+        f"resumed for {info_f['chunks_run']}) {fault_s:.3f} s; final state "
+        f"and every shard array of the {len(ids)} non-quarantined instances "
+        f"{'bit-equal' if not loose else 'within tolerance'}, instance "
+        f"{r['poison']} quarantined; recording off (phase 6) = on bit for "
+        f"bit")
+    return dict(clean_s=clean_s, fault_s=fault_s,
+                launches=launches, group_calls=run.group_calls,
+                fault_seed=seed, loose=sorted(set(loose)),
+                quarantined=info_f["quarantined"])
+
+
+def pipeline_phase(torch, sweep_wall: float) -> dict:
+    """Phase 7b, the gate: the port's controller over the full-size
+    recording sweep with injected crashes, hangs, stragglers, one poison
+    instance and two SIGKILLs. The controller must exit 0 with eligible
+    completion 1.0, the port's ``verify_shards`` must find nothing to
+    repair, the dataset must hold every non-quarantined instance once, and
+    the final worker's neighbor launches must equal 2 x chunk_steps x its
+    batched chunk calls."""
+    import os
+    import re
+    import shutil
+    import signal
+
+    from repro_torch.core.fleet import RunJournal
+    from repro_torch.core.record import RecordConfig
+    from repro_torch.core.scenario import SimConfig
+    from repro_torch.core.scenarios import list_scenarios
+    from repro_torch.core.sweep import SweepConfig
+    from repro_torch.data.shards import DatasetWriter, ShardedDataset
+
+    p = PIPELINE
+    work = WORK / "pipeline"
+    shutil.rmtree(work, ignore_errors=True)
+    run_dir, ds = work / "run", work / "ds"
+    worker = [
+        "--instances", str(p["instances"]), "--slots", str(p["slots"]),
+        "--steps", str(p["steps"]), "--chunk-steps", str(p["chunk_steps"]),
+        "--scenario-mix", "all", "--dispatch", "grouped",
+        "--neighbor-impl", "cuda", "--workers", str(p["workers"]),
+        "--fail-prob", str(p["fail_prob"]), "--hang-prob", str(p["hang_prob"]),
+        "--straggler-prob", str(p["straggler_prob"]),
+        "--poison", str(p["poison"]), "--record-every", str(p["record_every"]),
+        "--record-slots", str(p["record_slots"]),
+        "--shard-size", str(p["shard_size"]), "--dataset-dir", str(ds),
+        "--device", "cuda",
+    ]
+    cmd = [sys.executable, "-m", "repro_torch.launch.controller",
+           "--ckpt-dir", str(run_dir), "--chaos-kills", str(p["chaos_kills"]),
+           "--heartbeat-timeout", "600", "--poll", "0.5", "--", *worker]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=str(ROOT), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=p["timeout_s"])
+    finally:
+        if proc.poll() is None:  # the controller and its worker, on timeout
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    (work / "controller.log").write_text(out)
+    if proc.returncode != 0:
+        raise AssertionError(f"controller exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    result = json.loads((run_dir / "result.json").read_text())
+    info = result["fault_info"]
+    if info["eligible_completion_rate"] != 1.0:
+        raise AssertionError(f"eligible completion "
+                             f"{info['eligible_completion_rate']}")
+    cfg = SweepConfig(
+        n_instances=p["instances"], steps_per_instance=p["steps"],
+        chunk_steps=p["chunk_steps"],
+        sim=SimConfig(n_slots=p["slots"], neighbor_impl="cuda"),
+        scenario_mix=tuple(list_scenarios()), dispatch="grouped",
+        record=RecordConfig(record_every=p["record_every"],
+                            k_slots=p["record_slots"]))
+    audit = DatasetWriter(str(ds), cfg, shard_size=p["shard_size"])
+    if audit.repaired or audit.verify_shards():
+        raise AssertionError(f"verify_shards repaired {audit.repaired}")
+    data = ShardedDataset.load(str(ds))
+    ids = [i for s in data.manifest["shards"] for i in s["instances"]]
+    want_ids = sorted(set(range(p["instances"])) - {p["poison"]})
+    if sorted(ids) != want_ids or data.n_instances != len(want_ids):
+        raise AssertionError(f"dataset holds {len(ids)} instance rows "
+                             f"({len(set(ids))} distinct), expected "
+                             f"{len(want_ids)}")
+    if info["quarantined"] != [p["poison"]]:
+        raise AssertionError(f"quarantined {info['quarantined']}")
+    launches = result["launches"]["neighbor_kernel"]
+    want = 2 * p["chunk_steps"] * result["group_calls"]
+    if launches != want:
+        raise AssertionError(f"final worker: neighbor_kernel launched "
+                             f"{launches} times, expected 2 x "
+                             f"{p['chunk_steps']} x {result['group_calls']}")
+
+    ctl = RunJournal.read(str(run_dir / "controller.jsonl"))
+    jr = RunJournal.read(str(run_dir / "journal.jsonl"))
+    kills = sum(e["kind"] == "worker_kill" for e in ctl)
+    spawns = sum(e["kind"] == "spawn" for e in ctl)
+    faults: dict[str, int] = {}
+    for e in jr:
+        kind = e.get("fault") or e["kind"]
+        if e["kind"] in ("failure", "straggler", "quarantine",
+                         "corrupt_ckpt", "corrupt_shard", "shard_repair"):
+            faults[kind] = faults.get(kind, 0) + 1
+    committed = sum(e["kind"] == "chunk" for e in jr)
+    timing = [(int(c), *(float(x) for x in t)) for c, *t in re.findall(
+        r"chunk ([0-9]+) host seconds: chunk ([0-9.]+), checkpoint save "
+        r"([0-9.]+), shard drain ([0-9.]+)", out)]
+    ds_bytes = sum(f.stat().st_size for f in ds.iterdir())
+    ck_bytes = sum(f.stat().st_size for f in run_dir.rglob("arrays.npz"))
+    if kills != p["chaos_kills"]:
+        raise AssertionError(f"{kills} chaos kills, expected {p['chaos_kills']}")
+    log(f"pipeline: controller over {p['instances']} instances x "
+        f"{p['steps']} steps, {p['slots']} slots, chunks of "
+        f"{p['chunk_steps']}, {p['workers']} workers, recording every "
+        f"{p['record_every']} steps: wall {wall:.3f} s (phase 4's sweep "
+        f"{sweep_wall:.3f} s); {committed} chunks committed over {spawns} "
+        f"worker attempts ({kills} SIGKILLs, {spawns - 1} restarts); faults "
+        f"{faults}; eligible completion 1.0, completion "
+        f"{info['completion_rate']:.6f}, quarantined {info['quarantined']}; "
+        f"dataset {data.n_instances} instances once each, verify_shards "
+        f"repaired nothing, {ds_bytes} bytes; checkpoints {ck_bytes} bytes "
+        f"on disk; final worker's neighbor_kernel launches {launches} = 2 x "
+        f"{p['chunk_steps']} x {result['group_calls']}")
+    for c, chunk_s, ckpt_s, drain_s in timing:
+        log(f"pipeline:   chunk {c}: host seconds: chunk {chunk_s:.4f}, "
+            f"checkpoint save {ckpt_s:.4f}, shard drain {drain_s:.4f}")
+    return dict(wall_s=wall, sweep_wall_s=sweep_wall, chunks=committed,
+                spawns=spawns, kills=kills, faults=faults,
+                completion_rate=info["completion_rate"],
+                dataset_bytes=ds_bytes, checkpoint_bytes=ck_bytes,
+                launches_final_worker=launches, timing=timing)
+
+
 def live_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     """(query, key) pairs that attention with these masks scores: query i
     at position i + sk - sq sees keys (pos - window, pos] (causal) or
@@ -585,32 +925,72 @@ def flash_phase(torch, fa, ref) -> list[dict]:
     return results
 
 
+def rounded_before_normalising(torch, q, k, v, cap: float, tile: int = 64):
+    """Causal softcapped attention with p rounded to bf16 before it is
+    normalised: the online softmax over ``tile``-key tiles with a running
+    max, p = exp(s - m) rounded to bf16 for its product with v, the row sum
+    in f32 (the first Hopper build's placement of the rounding, and
+    ``flash_xla``'s). Plain PyTorch, the diagnosis of phase 8's margin."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    sc = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(b, s, kh, h // kh, d)
+                      .float(), k.float()) * d**-0.5
+    sc = cap * torch.tanh(sc / cap)
+    i = torch.arange(s, device=q.device)
+    sc = torch.where(i[:, None] >= i[None], sc, -2.0**30)
+    m = torch.full(sc.shape[:-1] + (1,), -2.0**30, device=q.device)
+    l, acc = torch.zeros_like(m), None
+    for k0 in range(0, s, tile):
+        t = sc[..., k0:k0 + tile]
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(t - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p.bfloat16().float(),
+                          v[:, k0:k0 + tile].float())
+        acc = pv if acc is None else acc * alpha + pv
+        m = m_new
+    return (acc / l).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
 def flash_margin(torch, fa, ref, draws: int = FLASH_MARGIN_DRAWS) -> dict:
-    """How often the bf16 kernel crosses its tolerance on large scores:
+    """How close the bf16 kernel comes to its tolerance on large scores:
     ``draws`` seeded draws of gemma2-2b's global shape at S 512 with q x 20
     (scores of about N(0, 20^2), past the softcap of 50), each held
     against ``ref_attention``. Reports the draws that cross rtol 2e-2,
-    atol 8e-3 and the largest ratio of |err| to the tolerance; the
-    committed checks are not loosened, and a crossing here fails nothing."""
+    atol 8e-3 and the largest ratio of |err| to the tolerance (``main``
+    fails on a crossing), and the same for the plain
+    :func:`rounded_before_normalising`, which rounds p where the first
+    build of the kernel did."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     b, s, h, kh, d, cap = 1, 512, 8, 4, 256, 50.0
     tol = FLASH_TOL["bfloat16"]
-    crossed, worst = 0, 0.0
+    crossed, worst, crossed_b, worst_b = 0, 0.0, 0, 0.0
+
+    def ratio(got, want):
+        return float(((got - want).abs()
+                      / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
     for _ in range(draws):
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
         q, k, v = (q * 20.0).bfloat16(), k.bfloat16(), v.bfloat16()
         got = fa.flash_attention(q, k, v, causal=True, softcap=cap).float()
         want = ref.ref_attention(q, k, v, True, 0, cap).float()
-        ratio = float(((got - want).abs()
-                       / (tol["atol"] + tol["rtol"] * want.abs())).max())
-        crossed += ratio > 1.0
-        worst = max(worst, ratio)
+        r = ratio(got, want)
+        crossed += r > 1.0
+        worst = max(worst, r)
+        r = ratio(rounded_before_normalising(torch, q, k, v, cap), want)
+        crossed_b += r > 1.0
+        worst_b = max(worst_b, r)
     log(f"flash_attention bf16 margin: {draws} draws of gemma2-2b global "
-        f"S={s} q x 20 (softcap {cap}): {crossed} cross the tolerance "
-        f"{tol}; the largest |err| / tolerance is {worst:.4f}")
-    return dict(draws=draws, crossed=crossed, max_ratio=worst)
+        f"S={s} q x 20 (softcap {cap}): the kernel crosses the tolerance "
+        f"{tol} on {crossed}, the largest |err| / tolerance is {worst:.4f}; "
+        f"p rounded to bf16 before normalising (plain) crosses on "
+        f"{crossed_b}, largest {worst_b:.4f}")
+    return dict(draws=draws, crossed=crossed, max_ratio=worst,
+                rounded_before_normalising=dict(crossed=crossed_b,
+                                                max_ratio=worst_b))
 
 
 def rglru_decays(torch, gen, shape, decay: str):
@@ -655,7 +1035,8 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
                       float((hf - want_h).abs().max()))
             trials = 5 if s > 1024 else 21
             ms = device_ms(lambda: rg.rglru_linear_scan(a, x, h0), 10, trials)
-            plain_ms = device_ms(lambda: ref.ref_rglru(a, x, h0), 1, 5)
+            plain_ms = device_ms(lambda: ref.ref_rglru(a, x, h0), 1,
+                                 PLAIN_LOOP_TRIALS if s > 1024 else 5)
             bound_ms, bound_by = bound(
                 b * s * w * (4 + 2 * x.element_size()) + 2 * b * w * 4,
                 2 * b * s * w)
@@ -717,7 +1098,8 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
             trials = 5 if s > 1024 else 21
             ms = device_ms(lambda: rw.wkv6(*args), 2 if s > 1024 else 10,
                            trials)
-            plain_ms = device_ms(lambda: ref.ref_wkv6(*args), 1, 5)
+            plain_ms = device_ms(lambda: ref.ref_wkv6(*args), 1,
+                                 PLAIN_LOOP_TRIALS if s > 1024 else 5)
             elt = v.element_size()
             bytes_moved = (b * s * h * (kd * (2 * elt + 4) + 2 * vd * elt)
                            + h * kd * 4 + 2 * b * h * kd * vd * 4)
@@ -1016,7 +1398,7 @@ def states_equal(torch, a, b, path="state") -> None:
         return
     if isinstance(a, torch.Tensor):
         if not torch.equal(a, b):
-            raise AssertionError(f"{path} differs between cuda and sort")
+            raise AssertionError(f"{path} differs")
         return
     for name, x, y in zip(a._fields, a, b):
         states_equal(torch, x, y, f"{path}.{name}")
@@ -1130,12 +1512,21 @@ def main() -> None:
     # 7. where a group call's time goes
     profile_phase(torch)
 
+    # 7a. the recording, checkpointed, supervised sweep in-process; 7b. the
+    # controller over the full-size recording sweep (the gate)
+    record = record_phase(torch, idm, a["state"])
+    pipeline = pipeline_phase(torch, wall)
+
     main_nb = nb_results[0]
     main_idm = idm_results[0]
     kernels = [
         dict(name="neighbor_kernel", route="cuda", source=SOURCE,
              replaces="src/repro/kernels/idm.py:242",
              launches=counts["neighbor_kernel"],
+             launches_by_path={"sweep": counts["neighbor_kernel"],
+                               "record": record["launches"],
+                               "pipeline (final worker)":
+                                   pipeline["launches_final_worker"]},
              max_abs_err=max(r["max_abs_err"] for r in nb_results),
              ms=main_nb["ms"], plain_ms=main_nb["plain_ms"],
              bound_ms=main_nb["bound_ms"], bound_by=main_nb["bound_by"],
@@ -1152,6 +1543,10 @@ def main() -> None:
     # 8. flash attention against its plain version
     fl_results = flash_phase(torch, fa, ref)
     margin = flash_margin(torch, fa, ref)
+    if margin["crossed"]:
+        raise AssertionError(f"flash_attention bf16: {margin['crossed']} of "
+                             f"{margin['draws']} q x 20 draws cross the "
+                             "tolerance")
 
     # 9. the recurrence kernels against their plain versions
     rg_results, rw_results = recurrence_phase(torch, rg, rw, ref)

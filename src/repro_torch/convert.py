@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.core.record import TraceBuffer
 from repro_torch.core.scenario import ScenarioParams
 from repro_torch.core.simulator import SimMetrics, SimState
 from repro_torch.core.sweep import SweepState
@@ -58,11 +59,16 @@ def scenario_params_from_numpy(tree, device) -> ScenarioParams:
     return _convert(ScenarioParams, tree, device, np.ndim(tree.p_cav) == 0)
 
 
+def trace_buffer_from_numpy(tree, device) -> TraceBuffer:
+    """A reference ``TraceBuffer`` (numpy leaves) → :class:`TraceBuffer`."""
+    return _convert(TraceBuffer, tree, device, np.ndim(tree.series) == 2)
+
+
 def sweep_state_from_numpy(tree, device) -> SweepState:
-    """A reference ``SweepState`` (numpy leaves, no trace) → :class:`SweepState`."""
-    if getattr(tree, "trace", None) is not None:
-        raise ValueError("recorded traces are not ported yet")
+    """A reference ``SweepState`` (numpy leaves, with or without a
+    trace) → :class:`SweepState`."""
     device = resolve_device(device)
+    trace = getattr(tree, "trace", None)
     return SweepState(
         sim=sim_state_from_numpy(tree.sim, device),
         metrics=sim_metrics_from_numpy(tree.metrics, device),
@@ -71,6 +77,7 @@ def sweep_state_from_numpy(tree, device) -> SweepState:
         done=_tensor(tree.done, device, False),
         chunk=_tensor(tree.chunk, device, False),
         scenario_id=_tensor(tree.scenario_id, device, False),
+        trace=None if trace is None else trace_buffer_from_numpy(trace, device),
     )
 
 

@@ -26,8 +26,10 @@ _PARAM_COLUMNS = (
 
 
 def _np(tree):
-    """NamedTuple of tensors → same NamedTuple of numpy arrays."""
-    return type(tree)(*(np.asarray(x.detach().cpu()) for x in tree))
+    """NamedTuple of tensors (or numpy arrays) → same NamedTuple of numpy
+    arrays."""
+    return type(tree)(*(np.asarray(x.detach().cpu()) if isinstance(
+        x, torch.Tensor) else np.asarray(x) for x in tree))
 
 
 def _ids(scenario_ids) -> np.ndarray:
@@ -78,7 +80,13 @@ def metrics_to_records(
 ) -> list[dict[str, Any]]:
     """Stacked ``[N]`` metrics → list of per-instance dict records (with the
     scenario's aliased metric names when the roster is given)."""
-    cols = metrics_to_columns(metrics, params, scenario_ids, scenario_names)
+    return records_from_columns(
+        metrics_to_columns(metrics, params, scenario_ids, scenario_names))
+
+
+def records_from_columns(cols: dict[str, np.ndarray]) -> list[dict[str, Any]]:
+    """:func:`metrics_to_columns` output → per-instance dict records (for
+    callers that already built the columns, such as the shard writer)."""
     n = cols["instance"].shape[0]
     base_keys = ("instance",) + _METRIC_COLUMNS
     lists = {k: cols[k].tolist() for k in base_keys}

@@ -6,9 +6,9 @@ The reference steps one instance and ``vmap``s it; here every
 :class:`SimState` field carries a written-out instance axis (``[B, N]``,
 ``[B]`` for the step counter, ``[B, 2]`` for the PRNG key) and
 :func:`sim_step` advances the whole batch. The reference's ``lax.scan``
-over steps is a Python loop (:func:`rollout_chunk`), with the same
-horizon no-op masking: a step past an instance's horizon leaves its state
-and metrics untouched.
+over steps is a Python loop (:func:`rollout_chunk_rec`, which also fills
+a recording sweep's trace), with the same horizon no-op masking: a step
+past an instance's horizon leaves its state and metrics untouched.
 
 ``sim_step`` performs exactly two neighborhood constructions per step, as
 the reference does: one table build on the pre-move snapshot (own-lane,
@@ -382,6 +382,65 @@ def select_rows(rows: torch.Tensor, new: NamedTuple, old: NamedTuple):
 # rollouts
 # --------------------------------------------------------------------------
 
+def _step_live(st, metrics, sp, horizon, cfg):
+    """One masked step: instances at or past their horizon keep their state
+    and metrics. Also returns the unmasked post-step pair and ``live``."""
+    live = st.t < horizon
+    st2, d = sim_step(st, cfg, sp)
+    m2 = _acc(metrics, d)
+    return (select_rows(live, st2, st), select_rows(live, m2, metrics),
+            st2, m2, live)
+
+
+def rollout_chunk_rec(
+    st: SimState,
+    metrics: SimMetrics,
+    sp: ScenarioParams,
+    horizon: torch.Tensor,
+    trace,
+    cfg: SimConfig,
+    n_steps: int,
+    rec=None,
+):
+    """Advance the batch ``n_steps`` steps (one walltime slice); steps past
+    an instance's ``horizon`` ``[B]`` are no-ops for it (state and metrics
+    unchanged), exactly as the reference's masked scan.
+
+    With a :class:`~repro_torch.core.record.RecordConfig` ``rec`` the
+    rollout also fills ``trace`` (a ``TraceBuffer``); with ``rec=None``,
+    ``trace`` rides through untouched. Returns ``(st, metrics, trace)``.
+
+    When ``n_steps`` is a multiple of the stride, recording runs once per
+    stride window (channels and writes after the window's last step, for
+    the instances whose step counter moved in the window). This relies on
+    live instances entering a chunk at a stride-aligned step, which every
+    sweep path gives. Otherwise a per-step fallback records at the same
+    rows, bit for bit. Recording never changes the physics.
+    """
+    from repro_torch.core.record import record_step  # no import cycle
+
+    if rec is None:
+        for _ in range(n_steps):
+            st, metrics, *_ = _step_live(st, metrics, sp, horizon, cfg)
+        return st, metrics, trace
+
+    stride = rec.record_every
+    if n_steps % stride == 0:
+        for _ in range(n_steps // stride):
+            t0 = st.t
+            for _ in range(stride):
+                st, metrics, *_ = _step_live(st, metrics, sp, horizon, cfg)
+            # an instance frozen at its horizon for the whole window must
+            # not re-emit its final row
+            trace = record_step(trace, st, metrics, rec, st.t > t0)
+        return st, metrics, trace
+
+    for _ in range(n_steps):
+        st, metrics, st2, m2, live = _step_live(st, metrics, sp, horizon, cfg)
+        trace = record_step(trace, st2, m2, rec, live)
+    return st, metrics, trace
+
+
 def rollout_chunk(
     st: SimState,
     metrics: SimMetrics,
@@ -390,15 +449,9 @@ def rollout_chunk(
     cfg: SimConfig,
     n_steps: int,
 ) -> tuple[SimState, SimMetrics]:
-    """Advance the batch ``n_steps`` steps (one walltime slice). Steps past
-    an instance's ``horizon`` ``[B]`` are no-ops for it (state and metrics
-    unchanged), exactly as the reference's masked scan."""
-    for _ in range(n_steps):
-        live = st.t < horizon
-        st2, d = sim_step(st, cfg, sp)
-        m2 = _acc(metrics, d)
-        st = select_rows(live, st2, st)
-        metrics = select_rows(live, m2, metrics)
+    """Recording-free chunk rollout (see :func:`rollout_chunk_rec`)."""
+    st, metrics, _ = rollout_chunk_rec(st, metrics, sp, horizon, None, cfg,
+                                       n_steps, None)
     return st, metrics
 
 

@@ -19,8 +19,13 @@ instances run and how they are batched:
 
 Both modes give bit-identical state. Every :class:`SweepState` stays in
 logical instance order: gather/scatter is confined to ``run_chunk``.
-Multi-device blocks (``plan_chunk_blocks``) and trajectory recording
-(``SweepConfig.record``) arrive with later slices of the port.
+
+A recording sweep (``SweepConfig.record``, a
+:class:`~repro_torch.core.record.RecordConfig`) also fills
+``SweepState.trace``; the trace rides the same gather/scatter and, under
+``switch`` dispatch, the same per-row select as the simulator state, so its
+rows do not depend on dispatch or compaction. Multi-device blocks
+(``plan_chunk_blocks``) arrive with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -33,13 +38,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.record import RecordConfig, TraceBuffer, batch_zeros
 from repro_torch.core.scenario import ScenarioParams, SimConfig
 from repro_torch.core.scenarios import get_scenario
 from repro_torch.core.simulator import (
     SimMetrics,
     SimState,
     init_state,
-    rollout_chunk,
+    rollout_chunk_rec,
     select_rows,
 )
 from repro_torch.device import resolve_device
@@ -56,7 +62,8 @@ class SweepConfig:
     ``dispatch`` picks how a mixed roster runs: ``"switch"`` (every branch
     on every row, then a per-row select), ``"grouped"`` (per-scenario dense
     batches) or ``"auto"`` (grouped iff the roster is mixed); all are
-    bit-for-bit equivalent. ``record`` must be ``None`` in this slice.
+    bit-for-bit equivalent. ``record`` (a :class:`RecordConfig`) turns on
+    the trajectory channel; ``None`` records terminal metrics only.
     """
 
     n_instances: int = 48          # the paper's experiment: 6 nodes x 8 = 48
@@ -69,7 +76,7 @@ class SweepConfig:
     compaction: bool = True        # step pending instances only
     scenario_mix: tuple[str, ...] = ()  # round-robin roster; empty = sim.scenario
     dispatch: str = "auto"         # "switch" | "grouped" | "auto"
-    record: object | None = None   # trajectory recording: a later slice
+    record: RecordConfig | None = None  # trajectory recording
 
     @property
     def scenarios(self) -> tuple[str, ...]:
@@ -95,7 +102,7 @@ class SweepState(NamedTuple):
     done: torch.Tensor      # [N] bool — the completion bitmap
     chunk: torch.Tensor     # [] i32 — walltime slices executed
     scenario_id: torch.Tensor  # [N] i32 — index into SweepConfig.scenarios
-    trace: None = None      # recorded time series: a later slice
+    trace: TraceBuffer | None = None  # recorded time series, when recording
 
 
 @dataclass(frozen=True)
@@ -174,30 +181,50 @@ def plan_chunk(
 
 
 def _gather(tree, idx: torch.Tensor):
+    if tree is None:
+        return None
     return type(tree)(*(x.index_select(0, idx) for x in tree))
 
 
 def _scatter(full, part, upd: torch.Tensor, keep: int):
+    if full is None:
+        return None
     return type(full)(*(f.index_copy(0, upd, p[:keep])
                         for f, p in zip(full, part)))
 
 
+def _select(rows: torch.Tensor, new, old):
+    return None if old is None else select_rows(rows, new, old)
+
+
 class SweepRunner:
     """Drives a sweep to 100 % completion in walltime-slice chunks on one
-    device (``cuda`` unless ``device="cpu"``)."""
+    device (``cuda`` unless ``device="cpu"``).
 
-    def __init__(self, cfg: SweepConfig, device: str | torch.device | None = None):
+    ``workers_per_device`` is the launcher's ``--workers``: the fault
+    injector's worker grid (:meth:`_n_workers`, the paper's instances per
+    node). On one device the planner pads nothing: padding to the grid
+    would only step already-done instances.
+    """
+
+    def __init__(self, cfg: SweepConfig, device: str | torch.device | None = None,
+                 workers_per_device: int = 1):
         if cfg.dispatch not in DISPATCH_MODES:
             raise ValueError(
                 f"dispatch must be one of {DISPATCH_MODES}, got {cfg.dispatch!r}"
             )
-        if cfg.record is not None:
+        if cfg.record is not None and not isinstance(cfg.record, RecordConfig):
             raise ValueError(
-                "SweepConfig.record (trajectory recording) is not ported yet: "
-                "it arrives with the core/record.py slice of repro_torch"
+                f"SweepConfig.record must be a RecordConfig or None, got "
+                f"{type(cfg.record).__name__}"
+            )
+        if workers_per_device < 1:
+            raise ValueError(
+                f"workers_per_device must be >= 1, got {workers_per_device}"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.workers_per_device = workers_per_device
         self.dispatch = cfg.effective_dispatch
         self._sims = tuple(
             dataclasses.replace(cfg.sim, scenario=s) for s in cfg.scenarios
@@ -229,6 +256,8 @@ class SweepRunner:
         else:
             horizon = torch.full((n,), cfg.steps_per_instance,
                                  dtype=torch.int32, device=dev)
+        trace = (batch_zeros(cfg.record, cfg.steps_per_instance, n, dev)
+                 if cfg.record is not None else None)
         return SweepState(
             sim=sim,
             metrics=SimMetrics.zeros(n, dev),
@@ -237,7 +266,13 @@ class SweepRunner:
             done=torch.zeros(n, dtype=torch.bool, device=dev),
             chunk=torch.zeros((), dtype=torch.int32, device=dev),
             scenario_id=sids,
+            trace=trace,
         )
+
+    def _n_workers(self) -> int:
+        """Total worker slots: one device × its instances per device (the
+        fault injector's grid)."""
+        return self.workers_per_device
 
     # ---------------- one walltime slice ----------------
 
@@ -251,57 +286,67 @@ class SweepRunner:
             )
         return done, sids
 
-    def plan_chunk(self, state: SweepState) -> list[GroupPlan]:
-        """The chunk execution plan for the current bitmap."""
+    def plan_chunk(self, state: SweepState,
+                   hold: np.ndarray | None = None) -> list[GroupPlan]:
+        """The chunk execution plan for the current bitmap; ``hold``
+        (boolean ``[N]``) keeps instances off the schedule."""
         cfg = self.cfg
         grouped = self.dispatch == "grouped"
-        if not cfg.compaction and not grouped:
+        no_hold = hold is None or not hold.any()
+        if not cfg.compaction and not grouped and no_hold:
             n = cfg.n_instances
             return [GroupPlan(roster=-1, take=np.arange(n), keep=n,
                               identity=True)]
         done, sids = self._host_bitmap(state)
         return plan_chunk(done, sids, 1, grouped=grouped,
-                          compaction=cfg.compaction)
+                          compaction=cfg.compaction, hold=hold)
 
-    def _rollout(self, sim_cfg: SimConfig, st, m, sp, h):
+    def _rollout(self, sim_cfg: SimConfig, st, m, sp, h, tr):
         self.group_calls += 1
-        return rollout_chunk(st, m, sp, h, sim_cfg, self.cfg.chunk_steps)
+        return rollout_chunk_rec(st, m, sp, h, tr, sim_cfg,
+                                 self.cfg.chunk_steps, self.cfg.record)
 
-    def _switch(self, st, m, sp, h, sid):
+    def _switch(self, st, m, sp, h, tr, sid):
         """Every distinct roster config on the whole batch, then a per-row
-        select by ``sid`` — the reference's vmapped ``lax.switch``."""
+        select by ``sid`` of state, metrics and trace — the reference's
+        vmapped ``lax.switch``."""
         out = None
         for s in dict.fromkeys(self._sims):
             rows = torch.zeros_like(sid, dtype=torch.bool)
             for r, sr in enumerate(self._sims):
                 if sr == s:
                     rows |= sid == r
-            st2, m2 = self._rollout(s, st, m, sp, h)
-            out = (st2, m2) if out is None else (
-                select_rows(rows, st2, out[0]), select_rows(rows, m2, out[1]))
+            st2, m2, tr2 = self._rollout(s, st, m, sp, h, tr)
+            out = (st2, m2, tr2) if out is None else (
+                select_rows(rows, st2, out[0]), select_rows(rows, m2, out[1]),
+                _select(rows, tr2, out[2]))
         return out
 
     def _run_group(self, state: SweepState, plan: GroupPlan) -> SweepState:
-        """Gather one plan group, step it, scatter results to logical slots."""
-        def run(st, m, sp, h, sid):
+        """Gather one plan group, step it, scatter results (the trace
+        too) to logical slots."""
+        def run(st, m, sp, h, tr, sid):
             if plan.roster < 0:
-                return self._switch(st, m, sp, h, sid)
-            return self._rollout(self._sims[plan.roster], st, m, sp, h)
+                return self._switch(st, m, sp, h, tr, sid)
+            return self._rollout(self._sims[plan.roster], st, m, sp, h, tr)
 
         if plan.identity:
-            sim, metrics = run(state.sim, state.metrics, state.params,
-                               state.horizon, state.scenario_id)
-            return state._replace(sim=sim, metrics=metrics)
+            sim, metrics, trace = run(state.sim, state.metrics, state.params,
+                                      state.horizon, state.trace,
+                                      state.scenario_id)
+            return state._replace(sim=sim, metrics=metrics, trace=trace)
         take = torch.as_tensor(plan.take, device=self.device)
-        sim, metrics = run(
+        sim, metrics, trace = run(
             _gather(state.sim, take), _gather(state.metrics, take),
             _gather(state.params, take), state.horizon.index_select(0, take),
+            _gather(state.trace, take),
             state.scenario_id.index_select(0, take),
         )
         upd = take[:plan.keep]
         return state._replace(
             sim=_scatter(state.sim, sim, upd, plan.keep),
             metrics=_scatter(state.metrics, metrics, upd, plan.keep),
+            trace=_scatter(state.trace, trace, upd, plan.keep),
         )
 
     def _check_device(self, state: SweepState) -> None:
@@ -320,11 +365,17 @@ class SweepRunner:
             elif x is not None:
                 stack.extend(x)
 
-    def run_chunk(self, state: SweepState) -> SweepState:
+    def run_chunk(self, state: SweepState,
+                  hold: np.ndarray | None = None) -> SweepState:
         """Advance every pending instance by one walltime slice; raises if
-        ``state`` is not on the runner's device."""
+        ``state`` is not on the runner's device.
+
+        ``hold`` (boolean ``[N]``) keeps the masked instances off this
+        chunk: their state is untouched and the chunk counter still
+        advances (the fleet supervisor's retry backoff and quarantine).
+        """
         self._check_device(state)
-        for plan in self.plan_chunk(state):
+        for plan in self.plan_chunk(state, hold):
             state = self._run_group(state, plan)
         done = state.sim.t >= state.horizon
         return state._replace(done=done, chunk=state.chunk + 1)

@@ -38,11 +38,19 @@
 //    The element mask runs only on tiles that straddle the causal diagonal
 //    or the window edge or hold keys past Sk (TMA zero-fills those: a
 //    score of 0, so they must still get -2^30).
-// 4. O += P V: p is rounded to bf16 and fed from registers (the f32
-//    accumulator fragment of S, packed in pairs, is the A fragment), V as
-//    an MN-major B operand (the transpose bit, 16-bit types only); O is
-//    scaled by alpha each tile. Rounding p is the port's contract:
-//    ref_attention casts p to v's type before its product with v.
+// 4. O += P V with p at about f32 precision, as the Pallas kernel forms
+//    P V from p in f32: p is split into p_hi = bf16(p) and p_lo =
+//    bf16(p - p_hi) (p - p_hi is exact in f32; p_hi + p_lo is within
+//    2^-17 of p) and both go through the tensor cores against the same V
+//    tile, into the same f32 accumulator: two register-A wgmma per k-step
+//    (the f32 fragment of S, packed in pairs, is the A fragment), V as an
+//    MN-major B operand (the transpose bit, 16-bit types only); O is
+//    scaled by alpha each tile. The second product doubles P V's tensor
+//    work (half of the kernel's) and costs no extra registers at the peak:
+//    the two packed halves take the 32 registers the f32 scores held.
+//    Rounding p once to bf16 before the product, as the first build did,
+//    made 2 of 64 large-score draws cross the bf16 tolerance against
+//    ref_attention, which rounds the normalised p instead (PERF.md).
 // 5. TMA: 4-D tensor maps over (D, heads, S, B), encoded on the host with
 //    cuTensorMapEncodeTiled from cudaGetDriverEntryPoint (no -lcuda), passed
 //    as __grid_constant__. A ragged last tile is zero-filled by the
@@ -554,16 +562,21 @@ __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint64_t dq,
   wg_commit();
 }
 
-// O += P V for one key tile, issued: BK / 16 k-steps, p from registers
+// O += P V for one key tile, issued: BK / 16 k-steps, each the product of
+// p_hi and then of p_lo with the same V rows, p from registers
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&pa)[BK / 16][4],
+                                         const uint32_t (&p_hi)[BK / 16][4],
+                                         const uint32_t (&p_lo)[BK / 16][4],
                                          uint64_t dv) {
   pin(acc);
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_pv<D>(acc, pa[kk], dv + ((kk * 16 * SWZ) >> 4));
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t d = dv + ((kk * 16 * SWZ) >> 4);
+    wgmma_pv<D>(acc, p_hi[kk], d);
+    wgmma_pv<D>(acc, p_lo[kk], d);
+  }
   wg_commit();
 }
 
@@ -615,15 +628,20 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-// p in bf16: the S fragment of keys 16 kk .. 16 kk + 15 is the A fragment
-// of k-step kk of P V
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
+// p as p_hi + p_lo, both bf16: the S fragment of keys 16 kk .. 16 kk + 15
+// is the A fragment of k-step kk of P V
+__device__ __forceinline__ void pack_p(uint32_t (&p_hi)[BK / 16][4],
+                                       uint32_t (&p_lo)[BK / 16][4],
                                        const float (&sc)[BK / 2]) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+    for (int j = 0; j < 4; ++j) {
+      const float a = sc[8 * kk + 2 * j], b = sc[8 * kk + 2 * j + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+      p_hi[kk][j] = *reinterpret_cast<const uint32_t*>(&hi);
+      p_lo[kk][j] = pack_bf16(a - __low2float(hi), b - __high2float(hi));
+    }
 }
 
 template <int D>
@@ -789,7 +807,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       ++t1;
 
     float sc[BK / 2];
-    uint32_t pa[BK / 16][4];
+    uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
     float alpha[2];
     mbar_wait(q_full, 0);
     for (int t = 0; t < t0; ++t) skip_tile<D>(q_full, t);
@@ -805,9 +823,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
           tile_edge(k0, Sk, causal, window, wg_first, wg_last), k0, col, qpos,
           Sk, causal, window);
       rescale<D>(acc, alpha);
-      pack_p(pa, sc);
+      pack_p(p_hi, p_lo, sc);
       mbar_wait(full_v<D>(q_full, s), tile_parity<D>(t));
-      issue_pv<D>(acc, pa, v_desc<D>(sV, t));
+      issue_pv<D>(acc, p_hi, p_lo, v_desc<D>(sV, t));
       wg_wait();
       pin(acc);
       mbar_arrive(empty_bar<D>(q_full, s));

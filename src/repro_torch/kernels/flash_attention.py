@@ -15,8 +15,9 @@ kernel to the other.
 
 One C entry, two kernels: bf16 runs on the Hopper tensor cores
 (``flash_fwd_wgmma``: wgmma for both products, K/V tiles by TMA into an
-mbarrier ring, p rounded to bf16 before its product with v, as
-``ref_attention`` rounds it); f32 runs on the CUDA cores (``flash_fwd``),
+mbarrier ring, P·V formed from p at about f32 precision as the residual
+sum of two bf16 products, as the Pallas kernel forms it from p in f32);
+f32 runs on the CUDA cores (``flash_fwd``),
 since wgmma takes no f32 input and TF32 would not hold the f32 tolerance.
 The bf16 kernel's TMA descriptors are encoded per launch with
 ``cuTensorMapEncodeTiled``, reached through the CUDA runtime's driver

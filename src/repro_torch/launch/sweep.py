@@ -1,8 +1,9 @@
-"""Sweep launcher — the paper's Phase II sweep as one command, on a GPU.
+"""Sweep launcher — the paper's Phase II/III pipeline as one command, on a GPU.
 
 ``python -m repro_torch.launch.sweep --instances 1024 --slots 128
 --scenario-mix all --neighbor-impl cuda`` runs the sweep on the card;
-``--device cpu`` runs it on the CPU. Flags:
+``--device cpu`` runs it on the CPU. The loop is always the supervised one
+(:func:`repro_torch.core.fleet.run_supervised`). Flags:
 
 ``--instances --steps --chunk-steps --slots``
     sweep size, horizon and walltime slice (defaults as the reference);
@@ -12,19 +13,51 @@
     how a mixed roster maps onto batched calls (bit-identical results);
 ``--neighbor-impl {reference,dense,sort,cuda}``
     the neighborhood engine; ``cuda`` is the hand-written kernel;
+``--fail-prob --hang-prob --straggler-prob --poison``
+    the injected faults (``FaultModel.random_model`` from ``--seed``, over
+    a ``--workers`` grid, the paper's instances per node);
+``--max-retries --chunk-deadline``
+    the retry budget before quarantine, and the journaled chunk deadline;
+``--ckpt-dir --journal --heartbeat-file``
+    checkpoints after every chunk (a rerun resumes from the newest valid
+    one), the run journal (default ``<ckpt-dir>/journal.jsonl``) and the
+    atomic liveness beacon that :mod:`repro_torch.launch.controller` polls;
+``--dataset-dir --record-every --record-slots --shard-size``
+    trajectory recording and the sharded Phase-III dataset
+    (``--dataset-dir`` alone records every 10 steps);
 ``--seed --vary-horizon --out --device``.
 
-It prints what the reference launcher prints (roster line, per-chunk
-completion, the final line and the summary JSON) apart from the fleet
-table. The fault, retry, checkpoint, heartbeat, dataset and ``--devices``
-flags come with the slices that port them.
+It prints what the reference launcher prints: the roster line, per-chunk
+completion, the final line with ``eligible`` completion, the fleet table
+and the summary JSON; and, per chunk, the host seconds of the chunk, its
+checkpoint save and its shard drain. ``--out`` also records the batched
+chunk calls and this process's kernel launch counts.
+
+Not ported yet, and refused: ``--devices`` above 1 and ``--pipeline``
+(host I/O overlapped with the next chunk), both ROADMAP queue 1 item 4. The
+port's loop is the synchronous one (the reference's ``--no-pipeline``); it
+writes the same states, shards and checkpoints, bit for bit, as the
+reference's pipelined default, which only moves the file writes in time.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
+
+NOT_PORTED = "is not ported yet: it is ROADMAP queue 1 item 4"
+
+
+def _write_heartbeat(path: str, chunk: int, done: float) -> None:
+    """Atomically publish a liveness beacon (tmp + rename, never torn)."""
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({"chunk": chunk, "done": done, "time": time.time()}, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
 
 
 def _parser(scenarios: list[str]) -> argparse.ArgumentParser:
@@ -50,21 +83,101 @@ def _parser(scenarios: list[str]) -> argparse.ArgumentParser:
                     help="neighborhood engine implementation")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--vary-horizon", action="store_true")
+    ap.add_argument("--fail-prob", type=float, default=0.0,
+                    help="per-worker per-chunk probability of an injected "
+                         "crash (chunk progress lost, instances reverted "
+                         "and re-queued)")
+    ap.add_argument("--hang-prob", type=float, default=0.0,
+                    help="per-worker per-chunk probability of an injected "
+                         "hang (same revert as a crash, journaled as a hang)")
+    ap.add_argument("--straggler-prob", type=float, default=0.0,
+                    help="per-worker per-chunk probability of a journaled "
+                         "slow-but-successful chunk (results kept)")
+    ap.add_argument("--poison", default="",
+                    help="comma-separated logical instance ids that crash "
+                         "every chunk they run (quarantined once their "
+                         "retry budget is spent)")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="per-instance retry budget before quarantine")
+    ap.add_argument("--chunk-deadline", type=float, default=None,
+                    help="wall-clock seconds per chunk before a 'deadline' "
+                         "event is journaled")
+    ap.add_argument("--heartbeat-file", default=None,
+                    help="write an atomic {chunk, done, time} liveness "
+                         "beacon here after every committed chunk")
+    ap.add_argument("--journal", default=None,
+                    help="append-only jsonl run journal (default: "
+                         "<ckpt-dir>/journal.jsonl when --ckpt-dir is set)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="cards the instance axis is split over; only 1 "
+                         "is ported")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="instances per device (the paper's per-node "
+                         "parallelism): the fault injector's worker grid")
+    ap.add_argument("--pipeline", dest="pipeline", action="store_true",
+                    default=False,
+                    help="overlap host I/O with the next chunk (not ported)")
+    ap.add_argument("--no-pipeline", dest="pipeline", action="store_false",
+                    help="the synchronous chunk loop (the default)")
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--out", default=None, help="write records JSON here")
+    ap.add_argument("--dataset-dir", default=None,
+                    help="stream a sharded Phase-III dataset here "
+                         "(npz/jsonl shards + manifest); implies recording")
+    ap.add_argument("--record-every", type=int, default=0,
+                    help="trajectory recording stride in steps (0 = off; "
+                         "--dataset-dir defaults it to 10)")
+    ap.add_argument("--record-slots", type=int, default=8,
+                    help="vehicle slots recorded for token streams")
+    ap.add_argument("--shard-size", type=int, default=16,
+                    help="instances per dataset shard")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, cuda:N or cpu)")
     return ap
 
 
 def main(argv: list[str] | None = None) -> dict:
-    """Run the CLI; returns ``{"state", "summary", "seconds",
-    "group_calls"}`` for in-process callers."""
+    """Run the CLI; returns ``{"state", "summary", "info", "seconds",
+    "group_calls", "timings"}`` for in-process callers."""
+    from repro_torch.ckpt import CheckpointManager
     from repro_torch.core.aggregate import aggregate_metrics, metrics_to_records
+    from repro_torch.core.fault import FaultModel
+    from repro_torch.core.fleet import (
+        RetryPolicy,
+        RunJournal,
+        format_completion_table,
+        run_supervised,
+    )
+    from repro_torch.core.record import RecordConfig
     from repro_torch.core.scenario import SimConfig
     from repro_torch.core.scenarios import list_scenarios
-    from repro_torch.core.sweep import SweepConfig, SweepRunner, completion_rate
+    from repro_torch.core.sweep import SweepConfig, SweepRunner
+    from repro_torch.data.shards import DatasetWriter
+    from repro_torch.kernels import idm
 
-    args = _parser(list_scenarios()).parse_args(argv)
+    ap = _parser(list_scenarios())
+    args = ap.parse_args(argv)
+    if args.workers < 1:
+        ap.error("--workers must be >= 1 (instances per device)")
+    if args.devices < 1:
+        ap.error("--devices must be >= 1")
+    if args.devices > 1:
+        raise NotImplementedError(f"--devices {args.devices} {NOT_PORTED} "
+                                  "(multi-GPU blocks)")
+    if args.pipeline:
+        raise NotImplementedError(f"--pipeline {NOT_PORTED} (pipelined host "
+                                  "I/O); the synchronous loop writes the "
+                                  "same bits")
+    try:
+        poison = tuple(int(p) for p in args.poison.split(",") if p.strip())
+    except ValueError:
+        ap.error("--poison takes comma-separated integer instance ids")
+
+    record_every = args.record_every
+    if args.dataset_dir and record_every == 0:
+        record_every = 10
+    record = (RecordConfig(record_every=record_every, k_slots=args.record_slots)
+              if record_every > 0 else None)
     if args.scenario_mix:
         mix = (
             tuple(list_scenarios())
@@ -83,19 +196,61 @@ def main(argv: list[str] | None = None) -> dict:
         vary_horizon=args.vary_horizon,
         scenario_mix=mix,
         dispatch=args.dispatch,
+        record=record,
     )
-    runner = SweepRunner(cfg, device=args.device)
+    runner = SweepRunner(cfg, device=args.device,
+                         workers_per_device=args.workers)
+    faults = FaultModel.random_model(
+        n_workers=runner._n_workers(),
+        n_chunks=max(args.steps // args.chunk_steps * 3, 8),
+        fail_prob=args.fail_prob,
+        hang_prob=args.hang_prob,
+        straggler_prob=args.straggler_prob,
+        poison_instances=poison,
+        seed=args.seed,
+    )
+    policy = RetryPolicy(max_retries=args.max_retries)
+    journal_path = args.journal or (
+        os.path.join(args.ckpt_dir, "journal.jsonl") if args.ckpt_dir else None
+    )
+    journal = RunJournal(journal_path) if journal_path else None
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    writer = (DatasetWriter(args.dataset_dir, cfg, shard_size=args.shard_size)
+              if args.dataset_dir else None)
+
     print(f"[sweep] scenarios: {', '.join(cfg.scenarios)} "
           f"({'mixed round-robin' if len(cfg.scenarios) > 1 else 'uniform'}) "
           f"| dispatch {cfg.effective_dispatch} "
-          f"| neighbor impl {cfg.sim.neighbor_impl} | device {runner.device}")
+          f"| neighbor impl {cfg.sim.neighbor_impl} | device {runner.device} "
+          f"x {args.workers} worker(s) | synchronous I/O"
+          + (f" | recording every {record_every} steps" if record else ""),
+          flush=True)
 
-    def on_chunk(c: int, state):
-        print(f"[sweep] chunk {c}: {completion_rate(state)*100:.1f}% complete")
-        return state
+    def on_progress(c: int, done: float) -> None:
+        print(f"[sweep] chunk {c}: {done*100:.1f}% complete", flush=True)
+        if args.heartbeat_file:
+            # the beacon goes out once the chunk's checkpoint is on disk, so
+            # a worker killed after a beacon resumes from that chunk
+            if ckpt is not None:
+                ckpt.wait()
+            _write_heartbeat(args.heartbeat_file, c, done)
+
+    timings: list[dict] = []
+
+    def on_timing(c: int, t: dict) -> None:
+        timings.append(dict(chunk=c, **t))
+        print(f"[sweep] chunk {c} host seconds: chunk {t['chunk_s']:.4f}, "
+              f"checkpoint save {t['ckpt_s']:.4f}, shard drain "
+              f"{t['drain_s']:.4f}", flush=True)
 
     t0 = time.perf_counter()
-    state = runner.run(on_chunk=on_chunk)
+    state, info = run_supervised(
+        runner, faults, policy=policy, ckpt=ckpt, writer=writer,
+        journal=journal, chunk_deadline=args.chunk_deadline,
+        on_progress=on_progress, on_timing=on_timing,
+    )
+    if ckpt is not None:
+        ckpt.wait()
     if runner.device.type == "cuda":
         import torch
 
@@ -105,21 +260,31 @@ def main(argv: list[str] | None = None) -> dict:
         state.metrics, scenario_ids=state.scenario_id,
         scenario_names=cfg.scenarios,
     )
-    chunks = int(state.chunk)
     print(f"[sweep] done in {dt:.1f}s — completion "
-          f"{completion_rate(state)*100:.0f}%, {chunks} chunks, "
-          f"{runner.group_calls} batched chunk calls")
+          f"{info['completion_rate']*100:.0f}% "
+          f"(eligible {info['eligible_completion_rate']*100:.0f}%), "
+          f"{info['chunks_run']} chunks, {runner.group_calls} batched chunk "
+          f"calls, {len(info['failure_events'])} failure events, "
+          f"{len(info['quarantined'])} quarantined")
+    print(format_completion_table(info["report"]))
     print(f"[sweep] {json.dumps(summary, indent=1)}")
+    if writer is not None:
+        manifest = writer.finalize(summary=summary, fault_info=info)
+        print(f"[sweep] wrote sharded dataset: {manifest} "
+              f"({len(writer.written)} instances)")
     if args.out:
         records = metrics_to_records(
             state.metrics, state.params,
             scenario_ids=state.scenario_id, scenario_names=cfg.scenarios,
         )
         with open(args.out, "w") as f:
-            json.dump({"summary": summary, "records": records}, f, indent=1)
+            json.dump({"summary": summary, "records": records,
+                       "fault_info": info, "group_calls": runner.group_calls,
+                       "launches": dict(idm.launches), "timings": timings},
+                      f, indent=1)
         print(f"[sweep] wrote dataset to {args.out}")
-    return {"state": state, "summary": summary, "seconds": dt,
-            "group_calls": runner.group_calls}
+    return {"state": state, "summary": summary, "info": info, "seconds": dt,
+            "group_calls": runner.group_calls, "timings": timings}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module and running
-its sweep and serve launchers on the CPU never loads ``jax`` or ``repro``;
-asking for ``cuda`` without a card raises instead of falling back to the
-CPU."""
+its sweep launcher (plain, and recording with checkpoints, a dataset and
+injected faults), its process controller and its serve launcher on the CPU
+never loads ``jax`` or ``repro``; asking for ``cuda`` without a card raises
+instead of falling back to the CPU."""
 
 import json
 import os
@@ -26,6 +27,16 @@ sys.argv = ["repro_torch.launch.sweep", "--device", "cpu", "--instances", "4",
             "--scenario-mix", "all", "--neighbor-impl", "cuda",
             "--out", sys.argv[1]]
 runpy.run_module("repro_torch.launch.sweep", run_name="__main__")
+sys.argv = ["repro_torch.launch.sweep", "--device", "cpu", "--instances", "4",
+            "--steps", "20", "--chunk-steps", "10", "--slots", "8",
+            "--scenario-mix", "all", "--record-every", "5",
+            "--dataset-dir", "ds", "--ckpt-dir", "ck", "--fail-prob", "0.3",
+            "--workers", "2", "--record-slots", "2", "--shard-size", "2"]
+runpy.run_module("repro_torch.launch.sweep", run_name="__main__")
+sys.argv = ["repro_torch.launch.controller", "--ckpt-dir", "ctl",
+            "--poll", "0.1", "--", "--device", "cpu", "--instances", "2",
+            "--steps", "10", "--chunk-steps", "10", "--slots", "8"]
+runpy.run_module("repro_torch.launch.controller", run_name="__main__")
 for arch in ("gemma2-2b", "recurrentgemma-2b", "rwkv6-3b"):
     sys.argv = ["repro_torch.launch.serve", "--device", "cpu", "--arch",
                 arch, "--requests", "2", "--max-new", "3"]
@@ -46,7 +57,11 @@ def test_no_jax_or_reference_imports(tmp_path):
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["leaked"] == []
     assert "repro_torch.launch.sweep" in result["modules"]
-    for name in ("repro_torch.kernels.idm", "repro_torch.kernels.flash_attention",
+    for name in ("repro_torch.core.record", "repro_torch.core.tokens",
+                 "repro_torch.core.fault", "repro_torch.core.fleet",
+                 "repro_torch.ckpt.io", "repro_torch.ckpt.manager",
+                 "repro_torch.data.shards", "repro_torch.launch.controller",
+                 "repro_torch.kernels.idm", "repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6",
                  "repro_torch.models.lm", "repro_torch.models.recurrent",
                  "repro_torch.configs.recurrentgemma_2b",
@@ -56,6 +71,12 @@ def test_no_jax_or_reference_imports(tmp_path):
     assert proc.stdout.count("[serve] completed 2/2 requests") == 3
     records = json.loads(out.read_text())["records"]
     assert len(records) == 4 and all(r["steps"] == 20 for r in records)
+    manifest = json.loads((tmp_path / "ds" / "manifest.json").read_text())
+    assert manifest["n_instances_written"] == 4
+    assert (tmp_path / "ck" / "journal.jsonl").exists()
+    assert "[controller] run complete after 1 attempt(s)" in proc.stdout
+    assert json.loads((tmp_path / "ctl" / "result.json").read_text())[
+        "fault_info"]["eligible_completion_rate"] == 1.0
 
 
 def test_sources_never_name_jax_or_reference():
