@@ -24,12 +24,21 @@ Phases, in order; any failure raises and exits non-zero:
    carries its bar of 0.008 ms and target of 0.004 ms;
 4. sweep  — the port's launcher in-process at full size (1024 instances,
    128 slots, the four-scenario mix, grouped dispatch, ``--neighbor-impl
-   cuda``): completion must reach 1.0 and the neighbor kernel's launch
-   count must equal 2 x chunk_steps x the batched chunk calls made;
+   cuda``, ``--devices 1``): completion must reach 1.0 and the neighbor
+   kernel's launch count must equal 2 x chunk_steps x the batched chunk
+   calls made;
 5. reference — a small sweep on the card (``cuda`` impl) against the same
    sweep on the CPU (``sort`` impl): integer counters equal, floats close;
 6. parity — 64 instances, 400 steps: the ``cuda`` and ``sort`` impls on the
    card must give a bit-identical final ``SweepState``;
+6a. blocks — phase 6's sweep through 2 and 4 blocks on one card
+   (``devices=[cuda:0] * k``, a stream each) and, where there are as many
+   cards, on distinct cards: each final ``SweepState`` must equal phase
+   6's bit for bit and the neighbor launches must equal 2 x chunk_steps x
+   the batched calls made; at 25 steps, 1, 2 and 4 blocks enqueued in
+   turn (the runner) against a host thread per block; then phase 4's
+   sweep at full width through 2 blocks on one card for one chunk of 400
+   steps, its instance-steps/s and vehicle-steps/s beside phase 4's;
 7. profile — host ms per step of one sweep group, and under
    ``torch.profiler`` the device's busy time, its share of the profiled
    wall time and of the unprofiled step, and the heaviest kernels;
@@ -45,9 +54,12 @@ Phases, in order; any failure raises and exits non-zero:
    other bits, naming the field, within the CPU sweep tests' tolerance),
    on every instance but the poison one, which must be quarantined; and
    recording off (phase 6's ``cuda`` run of the same sweep) must give the
-   same final state as recording on;
+   same final state as recording on; both runs once more pipelined (the
+   fault-free one through 2 blocks on one card): states, every shard
+   array and the faulted run's journal bit-equal to the synchronous runs';
 7b. pipeline — the gate: ``python -m repro_torch.launch.controller
-   --chaos-kills 2`` over the full-size recording sweep (1024 instances,
+   --chaos-kills 2`` over the full-size recording sweep, through the
+   launcher's default pipelined I/O and ``--devices 1`` (1024 instances,
    128 slots, 1200 steps in chunks of 200, the four-scenario mix, grouped,
    ``cuda`` neighbors, 8 workers, crash 0.1, hang 0.05, straggler 0.05,
    one poison instance, a row every 10 steps, 8 slots, shards of 64): the
@@ -56,7 +68,11 @@ Phases, in order; any failure raises and exits non-zero:
    once each, and the final worker's neighbor launches must equal 2 x
    chunk_steps x its batched chunk calls; prints the wall time beside
    phase 4's, chunks, restarts, faults by kind, the host seconds of each
-   chunk's checkpoint save and shard drain, and the dataset's bytes;
+   chunk's checkpoint save, shard drain and whole commit on the I/O
+   thread and the loop's wait for it, and the dataset's bytes;
+7c. tokens — 7b's dataset as LM inputs: its token corpus
+   (``shard_token_corpus``) and 4 ``sim_token_batches`` of 8 x 1024 on the
+   card for gemma2-2b; prints their shape and vocabulary;
 8. attention — ``flash_attention`` against ``ref_attention`` at gemma2-2b's
    prefill shapes (B 1, H 8, K 4, D 256, S 37/512/6000, global and local
    window 4096, softcap 50), once more at S 512 with q scaled by 20 so that
@@ -147,6 +163,14 @@ PIPELINE = dict(instances=1024, slots=128, steps=1200, chunk_steps=200,
                 workers=8, fail_prob=0.1, hang_prob=0.05, straggler_prob=0.05,
                 poison=517, record_every=10, record_slots=8, shard_size=64,
                 chaos_kills=2, timeout_s=900)
+# phase 7c: LM batches of phase 7b's dataset
+TOKENS = dict(batch=8, seq=1024, batches=4)
+# phase 6a: phase 4's sweep at full width timed through 2 blocks on one card
+# for one chunk (every chunk of phase 4 steps all instances, so one chunk's
+# rate is the sweep's; the one chunk keeps the script inside its time limit
+# on slower hosts), and the steps of the in-turn against threads timing
+BLOCKS_FULL = dict(instances=1024, steps=400)
+THREADS_STEPS = 25
 WORK = ROOT / "build" / "chip_smoke_run"  # checkpoints, datasets, journals
 SOURCE = "src/repro_torch/kernels/csrc/idm.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -521,7 +545,10 @@ def record_phase(torch, idm, plain) -> dict:
     reported quarantined. Recording on and off must give the same final
     simulator state, bit for bit: ``plain`` is phase 6's ``cuda`` run of
     the same sweep without recording (in one chunk of 400 steps; the chunk
-    size changes no bit)."""
+    size changes no bit). Both runs go once more pipelined (the fault-free
+    one through 2 blocks on one card, 2 x 4 workers): their final states,
+    every shard array and the faulted run's journal must equal the
+    synchronous runs' bit for bit."""
     import shutil
 
     from repro_torch.ckpt import CheckpointManager
@@ -544,10 +571,11 @@ def record_phase(torch, idm, plain) -> dict:
         record=RecordConfig(record_every=r["record_every"],
                             k_slots=r["k_slots"]))
     n_chunks = r["steps"] // r["chunk_steps"] * 3
+    one = [torch.device("cuda", 0)]
 
-    def runner(c=cfg):
-        return SweepRunner(c, device="cuda",
-                           workers_per_device=r["workers"])
+    def runner(devices=one):
+        return SweepRunner(cfg, devices=devices,
+                           workers_per_device=r["workers"] // len(devices))
 
     def writer(name):
         return DatasetWriter(str(work / name), cfg,
@@ -564,36 +592,44 @@ def record_phase(torch, idm, plain) -> dict:
             break
     policy = RetryPolicy(max_retries=2)
 
-    idm.reset_launches()
-    t0 = time.perf_counter()
-    run = runner()
-    w = writer("clean_ds")
-    clean, info = run_supervised(
-        run, ckpt=CheckpointManager(str(work / "clean_ck")), writer=w)
-    w.finalize(fault_info=info)
-    torch.cuda.synchronize()
-    clean_s = time.perf_counter() - t0
-    launches = idm.launches["neighbor_kernel"]
-    want = 2 * r["chunk_steps"] * run.group_calls
-    if launches != want or info["completion_rate"] != 1.0:
-        raise AssertionError(f"clean recording run: completion "
-                             f"{info['completion_rate']}, neighbor_kernel "
-                             f"launched {launches} times, expected {want}")
+    def clean_run(name, pipeline, devices=one):
+        idm.reset_launches()
+        t0 = time.perf_counter()
+        run = runner(devices)
+        w = writer(name + "_ds")
+        state, info = run_supervised(
+            run, ckpt=CheckpointManager(str(work / (name + "_ck"))),
+            writer=w, pipeline=pipeline)
+        w.finalize(fault_info=info)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = idm.launches["neighbor_kernel"]
+        want = 2 * r["chunk_steps"] * run.group_calls
+        if launches != want or info["completion_rate"] != 1.0:
+            raise AssertionError(f"{name} recording run: completion "
+                                 f"{info['completion_rate']}, neighbor_kernel "
+                                 f"launched {launches} times, expected {want}")
+        return state, info, wall, launches, run.group_calls
 
-    t0 = time.perf_counter()
-    ck = CheckpointManager(str(work / "fault_ck"))
-    jr = RunJournal(str(work / "fault_ck" / "journal.jsonl"))
-    w = writer("fault_ds")
-    _, first = run_supervised(runner(), fm, policy, ckpt=ck, writer=w,
-                              journal=jr, max_chunks=3)
-    del w  # the kill: buffered instances are lost with the process
-    w = writer("fault_ds")
-    faulted, info_f = run_supervised(runner(), fm, policy, ckpt=ck, writer=w,
-                                     journal=jr)
-    w.finalize(fault_info=info_f)
-    torch.cuda.synchronize()
-    fault_s = time.perf_counter() - t0
-    events = RunJournal.read(jr.path)
+    def faulted_run(name, pipeline):
+        t0 = time.perf_counter()
+        ck = CheckpointManager(str(work / (name + "_ck")))
+        jr = RunJournal(str(work / (name + "_ck") / "journal.jsonl"))
+        w = writer(name + "_ds")
+        _, first = run_supervised(runner(), fm, policy, ckpt=ck, writer=w,
+                                  journal=jr, max_chunks=3, pipeline=pipeline)
+        del w  # the kill: buffered instances are lost with the process
+        w = writer(name + "_ds")
+        state, info = run_supervised(runner(), fm, policy, ckpt=ck, writer=w,
+                                     journal=jr, pipeline=pipeline)
+        w.finalize(fault_info=info)
+        torch.cuda.synchronize()
+        events = [{k: v for k, v in e.items() if k != "time"}
+                  for e in RunJournal.read(jr.path)]
+        return state, info, first, time.perf_counter() - t0, events
+
+    clean, info, clean_s, launches, calls = clean_run("clean", False)
+    faulted, info_f, first, fault_s, events = faulted_run("fault", False)
     kinds = [e.get("fault", e["kind"]) for e in events]
     for kind in ("crash", "hang", "straggler", "poison", "quarantine",
                  "resume"):
@@ -620,12 +656,34 @@ def record_phase(torch, idm, plain) -> dict:
         raise AssertionError("phase 6's sweep is not this phase's sweep")
     states_equal(torch, plain.sim, clean.sim)
     states_equal(torch, plain.metrics, clean.metrics)
+
+    # the same two runs pipelined: bit-equal to the synchronous ones
+    two = [torch.device("cuda", 0)] * 2
+    clean_p, _, clean_ps, launches_p, calls_p = clean_run("clean_pipe", True,
+                                                          two)
+    faulted_p, info_fp, _, fault_ps, events_p = faulted_run("fault_pipe", True)
+    states_equal(torch, clean, clean_p, "record: pipelined 2-block state")
+    states_equal(torch, faulted, faulted_p, "record: pipelined faulted state")
+    if events_p != events or info_fp["quarantined"] != info_f["quarantined"]:
+        raise AssertionError("record: the pipelined faulted run's journal "
+                             "differs from the synchronous run's")
+    for sync_name, pipe_name in (("clean", "clean_pipe"),
+                                 ("fault", "fault_pipe")):
+        x = shard_rows(torch, work / f"{sync_name}_ds")
+        y = shard_rows(torch, work / f"{pipe_name}_ds")
+        if sorted(x) != sorted(y):
+            raise AssertionError(f"record: {pipe_name} holds other instances")
+        for i in x:
+            if list(x[i]) != list(y[i]) or not all(
+                    torch.equal(x[i][k], y[i][k]) for k in x[i]):
+                raise AssertionError(f"record: {pipe_name} shard row {i} "
+                                     "differs from the synchronous run's")
     log(f"record: {r['instances']} instances x {r['steps']} steps, "
         f"{r['slots']} slots, chunks of {r['chunk_steps']}, 4-scenario mix, "
         f"grouped, cuda impl, every {r['record_every']} steps, "
         f"{r['k_slots']} slots: fault-free run {clean_s:.3f} s "
         f"({info['chunks_run']} chunks, neighbor_kernel launches {launches} "
-        f"= 2 x {r['chunk_steps']} x {run.group_calls}); faulted run (fault "
+        f"= 2 x {r['chunk_steps']} x {calls}); faulted run (fault "
         f"seed {seed}: {kinds.count('crash')} crash, {kinds.count('hang')} "
         f"hang, {kinds.count('straggler')} straggler, {kinds.count('poison')}"
         f" poison events; killed after {first['chunks_run']} chunks, "
@@ -634,10 +692,133 @@ def record_phase(torch, idm, plain) -> dict:
         f"{'bit-equal' if not loose else 'within tolerance'}, instance "
         f"{r['poison']} quarantined; recording off (phase 6) = on bit for "
         f"bit")
-    return dict(clean_s=clean_s, fault_s=fault_s,
-                launches=launches, group_calls=run.group_calls,
+    log(f"record: pipelined: fault-free through 2 blocks on one card "
+        f"{clean_ps:.3f} s (neighbor_kernel launches {launches_p} = 2 x "
+        f"{r['chunk_steps']} x {calls_p}), faulted, killed and resumed "
+        f"{fault_ps:.3f} s: states, every shard array and the journal "
+        f"({len(events)} events) equal the synchronous runs' bit for bit")
+    return dict(clean_s=clean_s, fault_s=fault_s, clean_pipe_s=clean_ps,
+                fault_pipe_s=fault_ps, launches=launches, group_calls=calls,
+                launches_pipe=launches_p, group_calls_pipe=calls_p,
                 fault_seed=seed, loose=sorted(set(loose)),
                 quarantined=info_f["quarantined"])
+
+
+def blocks_phase(torch, idm, plain, sweep: dict) -> dict:
+    """Phase 6a: the block executor. Phase 6's sweep (64 instances x 400
+    steps, one chunk, ``cuda`` neighbors) through 2 and 4 blocks on one
+    card (``devices=[cuda:0] * k``: k streams, enqueued in turn) and,
+    where there are as many cards, on distinct cards: each final
+    ``SweepState`` must equal phase 6's bit for bit, and the neighbor
+    launches must equal 2 x chunk_steps x the batched calls made (the
+    counts set to 0 just before each run). At a short depth, 1, 2 and 4
+    blocks on one card enqueued in turn (the runner) against a host thread
+    per block. Then phase 4's sweep at full width through 2 blocks on one
+    card for one chunk (``BLOCKS_FULL``), its rates beside phase 4's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.fleet import run_supervised
+    from repro_torch.core.scenario import SimConfig
+    from repro_torch.core.scenarios import list_scenarios
+    from repro_torch.core.sweep import SweepConfig, SweepRunner
+    from repro_torch.launch.mesh import sweep_devices
+
+    def cfg(n, steps, chunk):
+        return SweepConfig(n_instances=n, steps_per_instance=steps,
+                           chunk_steps=chunk, seed=0,
+                           sim=SimConfig(n_slots=SWEEP["slots"],
+                                         neighbor_impl="cuda"),
+                           scenario_mix=tuple(list_scenarios()),
+                           dispatch="grouped")
+
+    def run(c, devices):
+        runner = SweepRunner(c, devices=devices)
+        state = runner.init()
+        torch.cuda.synchronize()
+        idm.reset_launches()
+        t0 = time.perf_counter()
+        state, info = run_supervised(runner, state=state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = idm.launches["neighbor_kernel"]
+        want = 2 * c.chunk_steps * runner.group_calls
+        if launches != want or info["completion_rate"] != 1.0:
+            raise AssertionError(
+                f"{len(devices)} blocks on {sorted(set(map(str, devices)))}: "
+                f"completion {info['completion_rate']}, neighbor_kernel "
+                f"launched {launches} times, expected 2 x {c.chunk_steps} x "
+                f"{runner.group_calls} = {want}")
+        return state, wall, launches, runner.group_calls
+
+    small = cfg(64, 400, 400)
+    layouts = [("one card", k, [torch.device("cuda", 0)] * k) for k in (2, 4)]
+    for k in (2, 4):
+        if torch.cuda.device_count() >= k:
+            layouts.append(("distinct cards", k, sweep_devices(k, "cuda:0")))
+    out = dict(parity=[], launches=0)
+    for where, k, devices in layouts:
+        state, wall, launches, calls = run(small, devices)
+        states_equal(torch, plain, state)
+        out["parity"].append(dict(where=where, blocks=k, wall_s=wall,
+                                  group_calls=calls, launches=launches))
+        out["launches"] += launches
+        log(f"blocks: phase 6's sweep through {k} blocks on {where}: "
+            f"final SweepState = phase 6's bit for bit; wall {wall:.3f} s, "
+            f"{64 * 400 / wall:.1f} instance-steps/s, neighbor_kernel "
+            f"launches {launches} = 2 x 400 x {calls}")
+    if torch.cuda.device_count() < 2:
+        log("blocks: one card visible: the distinct-card layouts not run")
+
+    # the runner enqueues blocks in turn from one thread; a host thread per
+    # block, timed against it in the same call at a short depth
+    class ThreadedBlocks(SweepRunner):
+        @staticmethod
+        def _dispatch(calls):
+            with ThreadPoolExecutor(len(calls)) as pool:
+                return [f.result() for f in [pool.submit(c) for c in calls]]
+
+    short = cfg(64, THREADS_STEPS, THREADS_STEPS)
+    out["threads"] = []
+    for k in (1, 2, 4):
+        devices = [torch.device("cuda", 0)] * k
+        row = dict(blocks=k, in_turn_s=run(short, devices)[1])
+        if k > 1:
+            runner = ThreadedBlocks(short, devices=devices)
+            state = runner.init()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.run(state)
+            torch.cuda.synchronize()
+            row["threads_s"] = time.perf_counter() - t0
+        out["threads"].append(row)
+    log("blocks: 64 instances x " + str(THREADS_STEPS) + " steps on one "
+        "card, enqueued in turn from one thread against a host thread per "
+        "block: " + "; ".join(
+            f"{r['blocks']} block(s) {r['in_turn_s']:.3f} s"
+            + (f" in turn, {r['threads_s']:.3f} s threaded"
+               if "threads_s" in r else "") for r in out["threads"]))
+
+    n, steps = BLOCKS_FULL["instances"], BLOCKS_FULL["steps"]
+    full = cfg(n, steps, SWEEP["chunk_steps"])
+    state, wall, launches, calls = run(full, [torch.device("cuda", 0)] * 2)
+    out["launches"] += launches
+    m = state.metrics
+    veh_steps = float(m.speed_count.sum())
+    if not bool((m.steps == steps).all()):
+        raise AssertionError("blocks: some instance did not run every step")
+    out["full"] = dict(instances=n, steps=steps, wall_s=wall,
+                       instance_steps_per_s=n * steps / wall,
+                       vehicle_steps_per_s=veh_steps / wall,
+                       group_calls=calls, launches=launches)
+    log(f"blocks: phase 4's sweep at full width ({n} instances, "
+        f"{SWEEP['slots']} slots), one chunk of {steps} steps, through 2 "
+        f"blocks on one card: wall {wall:.3f} s, "
+        f"{n * steps / wall:.1f} instance-steps/s, "
+        f"{veh_steps / wall:.1f} vehicle-steps/s; phase 4 through one "
+        f"device: {sweep['wall_s']:.3f} s, "
+        f"{sweep['instance_steps_per_s']:.1f} instance-steps/s, "
+        f"{sweep['vehicle_steps_per_s']:.1f} vehicle-steps/s")
+    return out
 
 
 def pipeline_phase(torch, sweep_wall: float) -> dict:
@@ -674,7 +855,7 @@ def pipeline_phase(torch, sweep_wall: float) -> dict:
         "--poison", str(p["poison"]), "--record-every", str(p["record_every"]),
         "--record-slots", str(p["record_slots"]),
         "--shard-size", str(p["shard_size"]), "--dataset-dir", str(ds),
-        "--device", "cuda",
+        "--device", "cuda", "--devices", "1",
     ]
     cmd = [sys.executable, "-m", "repro_torch.launch.controller",
            "--ckpt-dir", str(run_dir), "--chaos-kills", str(p["chaos_kills"]),
@@ -719,12 +900,17 @@ def pipeline_phase(torch, sweep_wall: float) -> dict:
                              f"{len(want_ids)}")
     if info["quarantined"] != [p["poison"]]:
         raise AssertionError(f"quarantined {info['quarantined']}")
-    launches = result["launches"]["neighbor_kernel"]
-    want = 2 * p["chunk_steps"] * result["group_calls"]
+    runs = [json.loads(line[len("[sweep] run: "):])
+            for line in out.splitlines() if line.startswith("[sweep] run: ")]
+    if not runs or not runs[-1]["pipeline"]:
+        raise AssertionError("the final worker printed no pipelined run line")
+    stats = runs[-1]
+    launches = stats["launches"]["neighbor_kernel"]
+    want = 2 * p["chunk_steps"] * stats["group_calls"]
     if launches != want:
         raise AssertionError(f"final worker: neighbor_kernel launched "
                              f"{launches} times, expected 2 x "
-                             f"{p['chunk_steps']} x {result['group_calls']}")
+                             f"{p['chunk_steps']} x {stats['group_calls']}")
 
     ctl = RunJournal.read(str(run_dir / "controller.jsonl"))
     jr = RunJournal.read(str(run_dir / "journal.jsonl"))
@@ -739,7 +925,8 @@ def pipeline_phase(torch, sweep_wall: float) -> dict:
     committed = sum(e["kind"] == "chunk" for e in jr)
     timing = [(int(c), *(float(x) for x in t)) for c, *t in re.findall(
         r"chunk ([0-9]+) host seconds: chunk ([0-9.]+), checkpoint save "
-        r"([0-9.]+), shard drain ([0-9.]+)", out)]
+        r"([0-9.]+), shard drain ([0-9.]+), commit ([0-9.]+), waited "
+        r"([0-9.]+)", out)]
     ds_bytes = sum(f.stat().st_size for f in ds.iterdir())
     ck_bytes = sum(f.stat().st_size for f in run_dir.rglob("arrays.npz"))
     if kills != p["chaos_kills"]:
@@ -747,7 +934,9 @@ def pipeline_phase(torch, sweep_wall: float) -> dict:
     log(f"pipeline: controller over {p['instances']} instances x "
         f"{p['steps']} steps, {p['slots']} slots, chunks of "
         f"{p['chunk_steps']}, {p['workers']} workers, recording every "
-        f"{p['record_every']} steps: wall {wall:.3f} s (phase 4's sweep "
+        f"{p['record_every']} steps, pipelined I/O: wall {wall:.3f} s "
+        f"(commits {sum(t[4] for t in timing):.3f} s on the I/O thread, the "
+        f"loop waited {sum(t[5] for t in timing):.3f} s; phase 4's sweep "
         f"{sweep_wall:.3f} s); {committed} chunks committed over {spawns} "
         f"worker attempts ({kills} SIGKILLs, {spawns - 1} restarts); faults "
         f"{faults}; eligible completion 1.0, completion "
@@ -755,15 +944,68 @@ def pipeline_phase(torch, sweep_wall: float) -> dict:
         f"dataset {data.n_instances} instances once each, verify_shards "
         f"repaired nothing, {ds_bytes} bytes; checkpoints {ck_bytes} bytes "
         f"on disk; final worker's neighbor_kernel launches {launches} = 2 x "
-        f"{p['chunk_steps']} x {result['group_calls']}")
-    for c, chunk_s, ckpt_s, drain_s in timing:
+        f"{p['chunk_steps']} x {stats['group_calls']}")
+    for c, chunk_s, ckpt_s, drain_s, commit_s, wait_s in timing:
         log(f"pipeline:   chunk {c}: host seconds: chunk {chunk_s:.4f}, "
-            f"checkpoint save {ckpt_s:.4f}, shard drain {drain_s:.4f}")
-    return dict(wall_s=wall, sweep_wall_s=sweep_wall, chunks=committed,
+            f"checkpoint save {ckpt_s:.4f}, shard drain {drain_s:.4f}, "
+            f"commit {commit_s:.4f}, waited {wait_s:.4f}")
+    return dict(dataset=ds, wall_s=wall, sweep_wall_s=sweep_wall,
+                chunks=committed,
                 spawns=spawns, kills=kills, faults=faults,
                 completion_rate=info["completion_rate"],
                 dataset_bytes=ds_bytes, checkpoint_bytes=ck_bytes,
                 launches_final_worker=launches, timing=timing)
+
+
+def tokens_phase(torch, ds) -> dict:
+    """Phase 7c: the LM inputs of phase 7b's dataset. Its token corpus
+    (``shard_token_corpus``, the vocabulary from its manifest) and a few
+    ``sim_token_batches`` on the card at gemma2-2b's vocabulary: i32
+    ``[batch, seq]`` tensors on ``cuda``, labels the tokens shifted by
+    one, every token inside the sim vocabulary, the first row the
+    corpus's first window."""
+    from repro_torch.config.base import get_arch
+    from repro_torch.core.scenario import SimConfig
+    from repro_torch.core.tokens import vocab_size
+    from repro_torch.data.sim_dataset import shard_token_corpus, sim_token_batches
+
+    t = TOKENS
+    t0 = time.perf_counter()
+    corpus, vocab = shard_token_corpus(str(ds))
+    corpus_s = time.perf_counter() - t0
+    want_vocab = vocab_size(SimConfig(n_slots=PIPELINE["slots"]))
+    if vocab != want_vocab or corpus.min() < 0 or corpus.max() >= vocab:
+        raise AssertionError(f"tokens: vocab {vocab} (expected {want_vocab}),"
+                             f" corpus in [{corpus.min()}, {corpus.max()}]")
+    cfg = get_arch("gemma2-2b")
+    it = sim_token_batches(cfg, SimConfig(n_slots=PIPELINE["slots"]),
+                           t["batch"], t["seq"], shard_dir=str(ds),
+                           device="cuda")
+    t0 = time.perf_counter()
+    batches = [next(it) for _ in range(t["batches"])]
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    shape = (t["batch"], t["seq"])
+    for b in batches:
+        tok, lab = b["tokens"], b["labels"]
+        if (tok.device.type != "cuda" or tok.dtype != torch.int32
+                or tuple(tok.shape) != shape or tuple(lab.shape) != shape
+                or not torch.equal(tok[:, 1:], lab[:, :-1])
+                or int(tok.max()) >= vocab or int(tok.min()) < 0):
+            raise AssertionError(f"tokens: a batch of {tok.dtype} "
+                                 f"{tuple(tok.shape)} on {tok.device} is not "
+                                 f"a shifted i32 {shape} window of the corpus")
+    first = torch.from_numpy(corpus[:t["seq"]].astype("int32")).cuda()
+    if not torch.equal(batches[0]["tokens"][0], first):
+        raise AssertionError("tokens: the first row is not the corpus's start")
+    log(f"tokens: phase 7b's dataset: corpus {corpus.size} tokens, "
+        f"vocabulary {vocab} (manifest), read in {corpus_s:.3f} s; "
+        f"{len(batches)} sim_token_batches on the card for gemma2-2b "
+        f"(vocabulary {cfg.vocab_size}): tokens and labels i32 {shape}, "
+        f"{batch_s:.4f} s")
+    return dict(corpus_tokens=int(corpus.size), vocab=vocab,
+                batches=len(batches), shape=list(shape), corpus_s=corpus_s,
+                batch_s=batch_s)
 
 
 def live_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -1445,7 +1687,7 @@ def main() -> None:
         "--steps", str(SWEEP["steps"]), "--chunk-steps",
         str(SWEEP["chunk_steps"]), "--scenario-mix", "all",
         "--dispatch", "grouped", "--neighbor-impl", "cuda", "--seed", "0",
-        "--device", "cuda",
+        "--device", "cuda", "--devices", "1",
     ]
     idm.reset_launches()
     res = launcher.main(argv)
@@ -1475,6 +1717,8 @@ def main() -> None:
     inst_steps = SWEEP["instances"] * SWEEP["steps"]
     veh_steps = float(m.speed_count.sum())
     wall = res["seconds"]
+    sweep = dict(wall_s=wall, instance_steps_per_s=inst_steps / wall,
+                 vehicle_steps_per_s=veh_steps / wall)
     log(f"sweep: {SWEEP['instances']} instances x {SWEEP['steps']} steps, "
         f"{SWEEP['slots']} slots, 4-scenario mix, grouped, cuda impl: "
         f"wall {wall:.3f} s, {inst_steps / wall:.1f} instance-steps/s, "
@@ -1509,6 +1753,9 @@ def main() -> None:
     log("parity: cuda and sort give a bit-identical final SweepState "
         "(64 instances, 400 steps)")
 
+    # 6a. the same sweep through blocks, and phase 4's through 2 blocks
+    blocks = blocks_phase(torch, idm, a["state"], sweep)
+
     # 7. where a group call's time goes
     profile_phase(torch)
 
@@ -1516,6 +1763,8 @@ def main() -> None:
     # controller over the full-size recording sweep (the gate)
     record = record_phase(torch, idm, a["state"])
     pipeline = pipeline_phase(torch, wall)
+    # 7c. the LM inputs of 7b's dataset
+    tokens_phase(torch, pipeline["dataset"])
 
     main_nb = nb_results[0]
     main_idm = idm_results[0]
@@ -1524,7 +1773,10 @@ def main() -> None:
              replaces="src/repro/kernels/idm.py:242",
              launches=counts["neighbor_kernel"],
              launches_by_path={"sweep": counts["neighbor_kernel"],
+                               "blocks": blocks["launches"],
                                "record": record["launches"],
+                               "record pipelined, 2 blocks":
+                                   record["launches_pipe"],
                                "pipeline (final worker)":
                                    pipeline["launches_final_worker"]},
              max_abs_err=max(r["max_abs_err"] for r in nb_results),

@@ -179,62 +179,38 @@ def run_with_failures(
     writer=None,
     pipeline: bool = False,
 ) -> tuple[SweepState, dict]:
-    """The fault-tolerant run loop.
+    """The fault-tolerant run loop without supervision: a thin call of
+    :func:`repro_torch.core.fleet.run_supervised` with no backoff and a
+    retry budget that never quarantines.
 
     Per chunk: snapshot → run chunk → inject failures (revert the killed
-    workers' instances to the snapshot, then recompute ``done``) →
+    workers' live instances to the snapshot, then recompute ``done``) →
     checkpoint (``ckpt``, a :class:`~repro_torch.ckpt.CheckpointManager`) →
     drain finished instances to ``writer`` (a
-    :class:`~repro_torch.data.shards.DatasetWriter`). The drain runs after
-    the revert, so a ``done`` bit handed to the writer can no longer be
-    reverted. Returns the final state and ``{chunks_run, failure_events,
-    completion_rate}``.
-
-    ``pipeline=True`` (the reference's overlap of host I/O with the next
-    chunk) is not ported yet: it raises rather than run synchronously.
+    :class:`~repro_torch.data.shards.DatasetWriter`); ``pipeline=True``
+    commits each chunk on an I/O thread while the next one runs. Returns
+    the final state and ``{chunks_run, failure_events, completion_rate}``,
+    one failure event ``{chunk, workers, instances}`` per chunk in which a
+    worker failed (``instances`` counts the instances it carries), as the
+    reference reports them.
     """
-    if pipeline:
-        raise NotImplementedError(
-            "run_with_failures(pipeline=True) is not ported yet: pipelined "
-            "host I/O is ROADMAP queue 1 item 4; pass pipeline=False")
-    if state is None:
-        state = runner.init()
-    if ckpt is not None and ckpt.has_checkpoint():
-        state, _meta = ckpt.restore(like=state)
-    events = []
-    chunks_run = 0
-    for _ in range(max_chunks):
-        if bool(state.done.all()):
-            break
-        # index the fault plan by the ABSOLUTE chunk counter: a resumed run
-        # restarts this loop at 0, but the schedule addresses chunks since
-        # the sweep started
-        c = int(state.chunk)
-        snapshot = state
-        state = runner.run_chunk(state)
-        chunks_run += 1
-        dead = injector.failed_workers(c)
-        if dead:
-            mask = injector.instance_mask(c, runner.cfg.n_instances)
-            state = revert_instances(state, snapshot, mask)
-            # recompute the bitmap after the revert, before the drain
-            state = state._replace(done=state.sim.t >= state.horizon)
-            events.append({"chunk": c, "workers": dead,
-                           "instances": int(mask.sum())})
-        if ckpt is not None:
-            ckpt.save(int(state.chunk), state)
-        if writer is not None:
-            writer.drain(state)
-        if on_progress is not None:
-            on_progress(c, float(state.done.float().mean()))
-    if writer is not None:
-        # the loop breaks before a chunk when everything is already done
-        # (e.g. resuming a finished sweep, or a kill between the last save
-        # and its drain); the drain is idempotent, so one more closes that
-        # window
-        writer.drain(state)
+    from repro_torch.core.fleet import RetryPolicy, run_supervised  # cycle
+
+    unlimited = RetryPolicy(max_retries=2**62, backoff_base=0)
+    state, info = run_supervised(runner, injector, unlimited, ckpt=ckpt,
+                                 writer=writer, state=state,
+                                 max_chunks=max_chunks,
+                                 on_progress=on_progress, pipeline=pipeline)
+    n = runner.cfg.n_instances
+    last = int(state.chunk)
+    events = [
+        {"chunk": c, "workers": dead,
+         "instances": int(injector.instance_mask(c, n).sum())}
+        for c in range(last - info["chunks_run"], last)
+        if (dead := injector.failed_workers(c))
+    ]
     return state, {
-        "chunks_run": chunks_run,
+        "chunks_run": info["chunks_run"],
         "failure_events": events,
         "completion_rate": float(state.done.float().mean()),
     }

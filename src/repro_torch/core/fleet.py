@@ -22,26 +22,29 @@ fault of :class:`~repro_torch.core.fault.FaultModel` without a human:
   damaged shard.
 
 :func:`completion_report` is the paper's §5.2 completion accounting per
-scenario; :func:`format_completion_table` renders it. The loop is the
-synchronous one: ``pipeline=True`` (host I/O overlapped with the next
-chunk) raises until ROADMAP queue 1 item 4 ports it. The synchronous loop
-writes the same bits as the reference's pipelined one.
+scenario; :func:`format_completion_table` renders it. ``pipeline=True``
+commits each chunk (checkpoint save, shard drain, audits, journal,
+heartbeat) on an I/O thread while the next chunk runs, in the same order
+and with the same bits as the synchronous loop.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import numpy as np
+import torch
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.ckpt.io import PAYLOAD, list_steps
 from repro_torch.core.fault import FailureInjector, FaultModel, revert_instances
-from repro_torch.core.sweep import SweepRunner, SweepState
+from repro_torch.core.sweep import SweepRunner, SweepState, _map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,19 +262,28 @@ def run_supervised(
     "deadline" event on overrun: a chunk in flight cannot be preempted, so
     real hangs are the process controller's job (heartbeat-loss SIGKILL);
     the hang fault simulates the timeout and revert in-process.
-    ``on_timing(c, {"chunk_s", "ckpt_s", "drain_s"})`` receives the host
-    seconds of each chunk's compute (to its completion bitmap), checkpoint
-    save and shard drain. ``pipeline=True`` raises (ROADMAP queue 1 item
-    4).
+
+    ``pipeline=True`` runs steps 4 and 5 of chunk ``c`` (its commit) on one
+    I/O thread while the loop runs chunk ``c+1``: ``run_chunk`` returns
+    only once the host has dispatched the whole chunk, so the overlap has
+    to come from a thread. The commit works on a host copy of the state,
+    started without waiting on the device right after the chunk's
+    completion bitmap is read, so the I/O thread never touches the device.
+    At most one commit is in flight: it is joined before the next one is
+    submitted and before the loop ends, so the writes, the journal's
+    events and the heartbeat-after-checkpoint rule keep the synchronous
+    loop's order, and the files hold the same bits.
+
+    ``on_timing(c, {"chunk_s", "ckpt_s", "drain_s", "commit_s",
+    "wait_s"})`` receives the host seconds of each chunk's compute (to its
+    completion bitmap), checkpoint save, shard drain and whole commit, and
+    the seconds the loop waited for that commit (all of it when
+    synchronous); pipelined, it comes once the commit has been joined.
 
     Returns ``(state, info)``: ``chunks_run``, ``failure_events``,
     ``completion_rate``, ``eligible_completion_rate``, ``quarantined``,
     ``retries_total`` and the :func:`completion_report`.
     """
-    if pipeline:
-        raise NotImplementedError(
-            "run_supervised(pipeline=True) is not ported yet: pipelined "
-            "host I/O is ROADMAP queue 1 item 4; pass pipeline=False")
     n = runner.cfg.n_instances
     faults = _as_model(faults, runner._n_workers())
     policy = policy or RetryPolicy()
@@ -296,9 +308,12 @@ def run_supervised(
         if journal is not None:
             journal.append(event)
 
-    def _commit(c, st, done_after, events, done_frac) -> dict:
+    def _commit(c, st, ready, done_after, events, done_frac,
+                n_quarantined) -> dict:
         """The chunk's durable writes, audits, journal and progress."""
         t0 = time.perf_counter()
+        if ready is not None:
+            ready.synchronize()  # the host copy of ``st`` has landed
         if ckpt is not None:
             ckpt.save(c + 1, st)
             if c in faults.corrupt_ckpt:
@@ -325,98 +340,74 @@ def run_supervised(
             _emit(e)
         _emit({
             "kind": "chunk", "chunk": c, "done": done_frac,
-            "quarantined": int(fleet.quarantined.sum()),
+            "quarantined": n_quarantined,
         })
         if on_progress is not None:
             on_progress(c, done_frac)
-        return {"ckpt_s": t1 - t0, "drain_s": t2 - t1}
+        return {"ckpt_s": t1 - t0, "drain_s": t2 - t1,
+                "commit_s": time.perf_counter() - t0}
+
+    inflight = None  # pipelined: (chunk, chunk seconds, the commit's future)
+
+    def _join() -> None:
+        nonlocal inflight
+        if inflight is None:
+            return
+        c, chunk_s, future = inflight
+        inflight = None
+        t0 = time.perf_counter()
+        io = future.result()
+        wait_s = time.perf_counter() - t0
+        if on_timing is not None:
+            on_timing(c, dict(chunk_s=chunk_s, **io, wait_s=wait_s))
 
     chunks_run = 0
     failure_events: list[dict] = []
-    for _ in range(max_chunks):
-        done_host = state.done.cpu().numpy()
-        if np.all(done_host | fleet.quarantined):
-            break
-        c = int(state.chunk)
-        held = fleet.held(c)
-        alive = ~done_host & ~held
-        snapshot = state
-        t0 = time.monotonic()
-        state = runner.run_chunk(state, hold=held if held.any() else None)
-        chunks_run += 1
-
-        # ---- fault injection: worker-granular crashes and hangs, then
-        # instance-granular poison (only live instances are affected)
-        events: list[dict] = []
-        mask = np.zeros(n, bool)
-        for kind, w in faults.lost_workers(c):
-            wm = faults.worker_mask(w, n) & alive
-            if wm.any():
-                events.append({
-                    "kind": "failure", "fault": kind, "chunk": c,
-                    "workers": [w],
-                    "instances": np.flatnonzero(wm).tolist(),
-                })
-                mask |= wm
-        poison = np.zeros(n, bool)
-        for i in faults.poison_instances:
-            if 0 <= i < n and alive[i] and not mask[i]:
-                poison[i] = True
-        if poison.any():
-            events.append({
-                "kind": "failure", "fault": "poison", "chunk": c,
-                "workers": None,
-                "instances": np.flatnonzero(poison).tolist(),
-            })
-            mask |= poison
-        slow = faults.straggler_workers(c)
-        if slow:
-            events.append({
-                "kind": "straggler", "chunk": c, "workers": list(slow),
-            })
-        if mask.any():
-            state = revert_instances(state, snapshot, mask)
-            state = state._replace(done=state.sim.t >= state.horizon)
-            ids = np.flatnonzero(mask)
-            fleet.retries[ids] += 1
-            over = ids[fleet.retries[ids] > policy.max_retries]
-            back = ids[fleet.retries[ids] <= policy.max_retries]
-            fleet.quarantined[over] = True
-            for i in back:
-                fleet.hold_until[i] = c + 1 + policy.backoff_chunks(
-                    int(fleet.retries[i])
+    with contextlib.ExitStack() as stack:
+        pool = (stack.enter_context(ThreadPoolExecutor(1))
+                if pipeline else None)
+        for _ in range(max_chunks):
+            done_host = state.done.cpu().numpy()
+            if np.all(done_host | fleet.quarantined):
+                break
+            c = int(state.chunk)
+            held = fleet.held(c)
+            alive = ~done_host & ~held
+            snapshot = state
+            t0 = time.monotonic()
+            state = runner.run_chunk(state, hold=held if held.any() else None)
+            chunks_run += 1
+            events, mask = _inject(faults, c, n, alive)
+            if mask.any():
+                state = revert_instances(state, snapshot, mask)
+                state = state._replace(done=state.sim.t >= state.horizon)
+                events += _charge(fleet, policy, c, mask, events)
+                failure_events.extend(
+                    {k: e[k] for k in ("chunk", "fault", "workers",
+                                       "instances")}
+                    for e in events if e["kind"] == "failure"
                 )
-            # failure events carry POST-update counters so journal replay
-            # is plain assignment (FleetState.replay)
-            for e in events:
-                if e["kind"] != "failure":
-                    continue
-                e["retries"] = {
-                    str(i): int(fleet.retries[i]) for i in e["instances"]
-                }
-                e["hold_until"] = {
-                    str(i): int(fleet.hold_until[i]) for i in e["instances"]
-                }
-            if over.size:
-                events.append({
-                    "kind": "quarantine", "chunk": c,
-                    "instances": over.tolist(),
-                })
-            failure_events.extend(
-                {k: e[k] for k in ("chunk", "fault", "workers", "instances")}
-                for e in events if e["kind"] == "failure"
-            )
 
-        done_after = state.done.cpu().numpy()  # sync point
-        elapsed = time.monotonic() - t0
-        if chunk_deadline is not None and elapsed > chunk_deadline:
-            events.append({
-                "kind": "deadline", "chunk": c,
-                "elapsed": elapsed, "deadline": chunk_deadline,
-            })
-        io = _commit(c, state, done_after, events, float(done_after.mean()))
-        if on_timing is not None:
-            on_timing(c, dict(chunk_s=elapsed, **io))
+            done_after = state.done.cpu().numpy()  # sync point
+            elapsed = time.monotonic() - t0
+            if chunk_deadline is not None and elapsed > chunk_deadline:
+                events.append({
+                    "kind": "deadline", "chunk": c,
+                    "elapsed": elapsed, "deadline": chunk_deadline,
+                })
+            packet = (c, state, None, done_after, events,
+                      float(done_after.mean()), int(fleet.quarantined.sum()))
+            if pool is None:
+                io = _commit(*packet)
+                if on_timing is not None:
+                    on_timing(c, dict(chunk_s=elapsed, **io,
+                                      wait_s=io["commit_s"]))
+                continue
+            if ckpt is not None or writer is not None:
+                packet = (c, *_host_copy(state), *packet[3:])
+            _join()
+            inflight = (c, elapsed, pool.submit(_commit, *packet))
+        _join()
 
     if writer is not None:
         # idempotent close-out: anything a kill window or a shard repair
@@ -442,6 +433,85 @@ def run_supervised(
         "quarantined": info["quarantined"],
     })
     return state, info
+
+
+def _inject(faults: FaultModel, c: int, n: int, alive: np.ndarray):
+    """Chunk ``c``'s faults: worker-granular crashes and hangs, then
+    instance-granular poison, on live instances only. Returns the events
+    and the boolean ``[N]`` mask of instances to revert."""
+    events: list[dict] = []
+    mask = np.zeros(n, bool)
+    for kind, w in faults.lost_workers(c):
+        wm = faults.worker_mask(w, n) & alive
+        if wm.any():
+            events.append({
+                "kind": "failure", "fault": kind, "chunk": c,
+                "workers": [w],
+                "instances": np.flatnonzero(wm).tolist(),
+            })
+            mask |= wm
+    poison = np.zeros(n, bool)
+    for i in faults.poison_instances:
+        if 0 <= i < n and alive[i] and not mask[i]:
+            poison[i] = True
+    if poison.any():
+        events.append({
+            "kind": "failure", "fault": "poison", "chunk": c,
+            "workers": None,
+            "instances": np.flatnonzero(poison).tolist(),
+        })
+        mask |= poison
+    slow = faults.straggler_workers(c)
+    if slow:
+        events.append({
+            "kind": "straggler", "chunk": c, "workers": list(slow),
+        })
+    return events, mask
+
+
+def _charge(fleet: FleetState, policy: RetryPolicy, c: int, mask: np.ndarray,
+            events: list[dict]) -> list[dict]:
+    """Charge each reverted instance a retry: quarantine it past its budget,
+    else hold it for its backoff. Writes the post-update counters into the
+    failure events (so journal replay is plain assignment) and returns the
+    quarantine event, if any."""
+    ids = np.flatnonzero(mask)
+    fleet.retries[ids] += 1
+    over = ids[fleet.retries[ids] > policy.max_retries]
+    back = ids[fleet.retries[ids] <= policy.max_retries]
+    fleet.quarantined[over] = True
+    for i in back:
+        fleet.hold_until[i] = c + 1 + policy.backoff_chunks(
+            int(fleet.retries[i])
+        )
+    for e in events:
+        if e["kind"] != "failure":
+            continue
+        e["retries"] = {str(i): int(fleet.retries[i]) for i in e["instances"]}
+        e["hold_until"] = {
+            str(i): int(fleet.hold_until[i]) for i in e["instances"]
+        }
+    if over.size:
+        return [{"kind": "quarantine", "chunk": c, "instances": over.tolist()}]
+    return []
+
+
+def _host_copy(state: SweepState):
+    """A copy of ``state`` on the host, and the event that marks it landed
+    (None when the state already lies on the host). The copies go into
+    pinned memory without waiting on the device, so the loop can go on
+    dispatching while they run."""
+    if state.done.device.type != "cuda":
+        return state, None
+
+    def copy(x):
+        return torch.empty_like(x, device="cpu", pin_memory=True).copy_(
+            x, non_blocking=True)
+
+    host = _map(copy, state)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(state.done.device))
+    return host, ready
 
 
 def completion_report(

@@ -24,13 +24,27 @@ A recording sweep (``SweepConfig.record``, a
 :class:`~repro_torch.core.record.RecordConfig`) also fills
 ``SweepState.trace``; the trace rides the same gather/scatter and, under
 ``switch`` dispatch, the same per-row select as the simulator state, so its
-rows do not depend on dispatch or compaction. Multi-device blocks
-(``plan_chunk_blocks``) arrive with a later slice of the port.
+rows do not depend on dispatch or compaction.
+
+Blocks (``SweepRunner(devices=[...])`` with more than one entry, the
+paper's "across an arbitrary number of computing nodes"): the planner
+packs the live instances into one block per device by LPT
+(:func:`plan_chunk_blocks`, host numpy copied from the reference); each
+block is enqueued on its own CUDA stream of its card, one after another
+from the calling thread, so the streams compute while the host enqueues.
+The block's rows are gathered on the home device (``devices[0]``), handed
+to its device, stepped there and scattered back in block order, so every
+:class:`SweepState` stays in logical order on the home device and N blocks
+give the same bits as one device. A list that names one card k times runs
+k blocks on k streams of that card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
@@ -138,13 +152,19 @@ def _partition_live(done, scenario_ids, *, grouped, compaction, hold=None):
     return live, pad_pool, groups
 
 
+def _pad_fill(pad_pool: np.ndarray, fallback: np.ndarray) -> np.ndarray:
+    """The padding source both planners share: finished instances when any
+    exist, else the given live fallback row."""
+    return pad_pool if pad_pool.size else fallback
+
+
 def _pad_group(idx: np.ndarray, pad_pool: np.ndarray, n_workers: int):
     """Pad ``idx`` to a multiple of the worker count with finished
     instances when any exist, else with the group's first live row."""
     pad = (-idx.size) % max(n_workers, 1)
     if pad == 0:
         return idx, idx.size
-    fill = np.resize(pad_pool if pad_pool.size else idx[:1], pad)
+    fill = np.resize(_pad_fill(pad_pool, idx[:1]), pad)
     return np.concatenate([idx, fill]), idx.size
 
 
@@ -180,6 +200,98 @@ def plan_chunk(
     return plans
 
 
+@dataclass(frozen=True)
+class BlockPlan:
+    """A chunk execution plan in per-device blocks.
+
+    Device ``d`` owns rows ``take[d*cap : (d+1)*cap]``; ``keep`` marks the
+    rows whose results go back to their logical slots (the rest pad the
+    block). ``block_sid[d]`` is the roster index every kept row of block
+    ``d`` runs, or ``-1`` for a block that mixes scenarios (or runs the
+    switch).
+    """
+
+    take: np.ndarray       # [D*cap] logical ids (gather order)
+    keep: np.ndarray       # [D*cap] bool — True where results are kept
+    block_sid: np.ndarray  # [D] i32 — roster id per block; -1 = mixed
+    cap: int               # rows per block (multiple of workers_per_device)
+    identity: bool         # take == arange(N), all kept
+
+    @property
+    def n_devices(self) -> int:
+        return self.block_sid.size
+
+
+def plan_chunk_blocks(
+    done: np.ndarray,
+    scenario_ids: np.ndarray,
+    n_devices: int,
+    workers_per_device: int = 1,
+    *,
+    grouped: bool,
+    compaction: bool,
+    hold: np.ndarray | None = None,
+) -> BlockPlan | None:
+    """Pack one chunk's live instances into per-device blocks by LPT.
+
+    1. partition the live set by scenario (when ``grouped``; otherwise one
+       roster ``-1`` group);
+    2. split any group larger than the fair share ``ceil(live / D)`` into
+       fair-share pieces, so a group spans devices only when it must;
+    3. place pieces largest first on the least-loaded device (ties: the
+       lowest device index, then the lowest roster id);
+    4. ``cap`` = the largest load rounded up to a ``workers_per_device``
+       multiple; each block is padded to ``cap`` with finished instances,
+       or with the first live row before anything has finished.
+
+    Returns None when nothing is pending. The same bitmap always gives the
+    same plan, bit for bit the reference's.
+    """
+    n = done.size
+    live, pad_pool, groups = _partition_live(
+        done, scenario_ids, grouped=grouped, compaction=compaction, hold=hold,
+    )
+    if live.size == 0:
+        return None
+    d_count = max(n_devices, 1)
+    wpd = max(workers_per_device, 1)
+    fair = -(-live.size // d_count)
+    pieces: list[tuple[int, np.ndarray]] = []
+    for roster, idx in groups:
+        for s in range(0, idx.size, fair):
+            pieces.append((roster, idx[s : s + fair]))
+    pieces.sort(key=lambda p: (-p[1].size, p[0]))
+    loads = np.zeros(d_count, np.int64)
+    bins: list[list[tuple[int, np.ndarray]]] = [[] for _ in range(d_count)]
+    for roster, idx in pieces:
+        d = int(np.argmin(loads))
+        bins[d].append((roster, idx))
+        loads[d] += idx.size
+    cap = max(int(loads.max()), 1)
+    cap = -(-cap // wpd) * wpd
+    take = np.empty(d_count * cap, np.int64)
+    keep = np.zeros(d_count * cap, bool)
+    block_sid = np.zeros(d_count, np.int32)
+    fill_src = _pad_fill(pad_pool, live[:1])
+    for d in range(d_count):
+        ids = (np.concatenate([idx for _, idx in bins[d]]) if bins[d]
+               else np.empty(0, np.int64))
+        rosters_d = {roster for roster, _ in bins[d]}
+        if len(rosters_d) == 1:
+            block_sid[d] = rosters_d.pop()
+        elif len(rosters_d) > 1:
+            block_sid[d] = -1
+        pad = cap - ids.size
+        row = np.concatenate([ids, np.resize(fill_src, pad)]) if pad else ids
+        take[d * cap : (d + 1) * cap] = row
+        keep[d * cap : d * cap + ids.size] = True
+    identity = bool(
+        take.size == n and keep.all() and np.array_equal(take, np.arange(n))
+    )
+    return BlockPlan(take=take, keep=keep, block_sid=block_sid, cap=cap,
+                     identity=identity)
+
+
 def _gather(tree, idx: torch.Tensor):
     if tree is None:
         return None
@@ -197,18 +309,44 @@ def _select(rows: torch.Tensor, new, old):
     return None if old is None else select_rows(rows, new, old)
 
 
+def _map(fn, tree):
+    """``fn`` on every tensor of a nest of tuples and NamedTuples (None
+    stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    vals = [_map(fn, x) for x in tree]
+    return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+
+
+def _record_stream(tree, stream) -> None:
+    """Mark every tensor of ``tree`` as used on ``stream``, so the caching
+    allocator keeps its memory until that stream's work on it is done."""
+    _map(lambda x: x.record_stream(stream), tree)
+
+
 class SweepRunner:
-    """Drives a sweep to 100 % completion in walltime-slice chunks on one
-    device (``cuda`` unless ``device="cpu"``).
+    """Drives a sweep to 100 % completion in walltime-slice chunks, on one
+    device (``cuda`` unless ``device="cpu"``) or in blocks over
+    ``devices``.
+
+    ``devices`` (a list, see :func:`repro_torch.launch.mesh.sweep_devices`)
+    with more than one entry runs every chunk as per-device LPT blocks
+    (:func:`plan_chunk_blocks`), each on its own CUDA stream of its card;
+    ``devices[0]`` is the home device that holds the state. A list that
+    names one device k times runs k blocks on it (k streams of one card,
+    or k blocks in turn on the CPU).
 
     ``workers_per_device`` is the launcher's ``--workers``: the fault
-    injector's worker grid (:meth:`_n_workers`, the paper's instances per
-    node). On one device the planner pads nothing: padding to the grid
-    would only step already-done instances.
+    injector's worker grid is ``len(devices) x workers_per_device``
+    (:meth:`_n_workers`, the paper's nodes x instances per node), and each
+    block is padded to a multiple of it. On one device the planner pads
+    nothing: padding would only step already-done instances.
     """
 
     def __init__(self, cfg: SweepConfig, device: str | torch.device | None = None,
-                 workers_per_device: int = 1):
+                 workers_per_device: int = 1, devices=None):
         if cfg.dispatch not in DISPATCH_MODES:
             raise ValueError(
                 f"dispatch must be one of {DISPATCH_MODES}, got {cfg.dispatch!r}"
@@ -223,15 +361,37 @@ class SweepRunner:
                 f"workers_per_device must be >= 1, got {workers_per_device}"
             )
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if devices is None:
+            devices = [device]
+        elif device is not None and (
+                not len(devices)
+                or resolve_device(device) != resolve_device(devices[0])):
+            raise ValueError(f"device {device!r} must be devices[0] "
+                             f"(devices {list(devices)!r})")
+        self._set_devices(devices)
         self.workers_per_device = workers_per_device
         self.dispatch = cfg.effective_dispatch
         self._sims = tuple(
             dataclasses.replace(cfg.sim, scenario=s) for s in cfg.scenarios
         )
         #: number of batched rollout calls made so far (one per group, and
-        #: one per distinct roster config in a switch chunk)
+        #: one per distinct roster config in a switch chunk); exact under
+        #: threads
         self.group_calls = 0
+        self._count_lock = threading.Lock()
+
+    def _set_devices(self, devices) -> None:
+        devs = tuple(resolve_device(d) for d in devices)
+        if not devs:
+            raise ValueError("devices must name at least one device")
+        if len({d.type for d in devs}) > 1:
+            raise ValueError(f"devices must be of one type, got "
+                             f"{[str(d) for d in devs]}")
+        self.devices = devs
+        self.device = devs[0]
+        self.n_devices = len(devs)
+        self._streams = (tuple(torch.cuda.Stream(device=d) for d in devs)
+                         if devs[0].type == "cuda" and len(devs) > 1 else None)
 
     # ---------------- init ----------------
 
@@ -270,9 +430,9 @@ class SweepRunner:
         )
 
     def _n_workers(self) -> int:
-        """Total worker slots: one device × its instances per device (the
-        fault injector's grid)."""
-        return self.workers_per_device
+        """Total worker slots: devices x instances per device (the fault
+        injector's grid)."""
+        return self.n_devices * self.workers_per_device
 
     # ---------------- one walltime slice ----------------
 
@@ -301,8 +461,22 @@ class SweepRunner:
         return plan_chunk(done, sids, 1, grouped=grouped,
                           compaction=cfg.compaction, hold=hold)
 
+    def plan_chunk_sharded(self, state: SweepState,
+                           hold: np.ndarray | None = None) -> BlockPlan | None:
+        """The blocked plan (:func:`plan_chunk_blocks`) for the current
+        bitmap over this runner's devices."""
+        return self._plan_blocks(*self._host_bitmap(state), hold)
+
+    def _plan_blocks(self, done, sids, hold) -> BlockPlan | None:
+        return plan_chunk_blocks(
+            done, sids, self.n_devices, self.workers_per_device,
+            grouped=self.dispatch == "grouped",
+            compaction=self.cfg.compaction, hold=hold,
+        )
+
     def _rollout(self, sim_cfg: SimConfig, st, m, sp, h, tr):
-        self.group_calls += 1
+        with self._count_lock:
+            self.group_calls += 1
         return rollout_chunk_rec(st, m, sp, h, tr, sim_cfg,
                                  self.cfg.chunk_steps, self.cfg.record)
 
@@ -349,6 +523,101 @@ class SweepRunner:
             trace=_scatter(state.trace, trace, upd, plan.keep),
         )
 
+    def _step_rows(self, ops, sids: np.ndarray):
+        """Step one block's rows (``ops`` = sim, metrics, params, horizon,
+        trace; ``sids`` their roster ids on the host): the switch under
+        ``switch`` dispatch, else one batch per roster in the block."""
+        st, m, sp, h, tr = ops
+        if self.dispatch != "grouped":
+            sid = torch.as_tensor(sids, device=h.device)
+            return self._switch(st, m, sp, h, tr, sid)
+        rosters = np.unique(sids)
+        if rosters.size == 1:
+            return self._rollout(self._sims[int(rosters[0])], *ops)
+        out = (st, m, tr)
+        for r in rosters:
+            rows = np.flatnonzero(sids == r)
+            idx = torch.as_tensor(rows, device=h.device)
+            part = self._rollout(self._sims[int(r)], _gather(st, idx),
+                                 _gather(m, idx), _gather(sp, idx),
+                                 h.index_select(0, idx), _gather(tr, idx))
+            out = tuple(_scatter(full, p, idx, rows.size)
+                        for full, p in zip(out, part))
+        return out
+
+    def _run_block(self, d: int, ops, sids: np.ndarray, home_stream, ready):
+        """Enqueue one block on ``devices[d]``. On a card it runs on the
+        block's stream: it waits for the gathers (``ready``), copies the
+        rows over when the card is not the home one, steps them and hands
+        the results back on the home stream. Returns the results and the
+        event that marks them done (None on the CPU). Safe to call from
+        any thread."""
+        dev, home = self.devices[d], self.device
+        if dev.type != "cuda":
+            return self._step_rows(ops, sids), None
+        stream = self._streams[d]
+        with contextlib.ExitStack() as ctx:
+            ctx.enter_context(torch.cuda.device(dev))
+            if dev != home:  # the home card's stream for the copies back
+                ctx.enter_context(torch.cuda.stream(home_stream))
+            ctx.enter_context(torch.cuda.stream(stream))
+            stream.wait_event(ready)
+            if dev == home:
+                _record_stream(ops, stream)
+            else:
+                ops = _map(lambda x: x.to(dev, non_blocking=True), ops)
+            out = self._step_rows(ops, sids)
+            if dev == home:
+                _record_stream(out, home_stream)
+            else:
+                out = _map(lambda x: x.to(home, non_blocking=True), out)
+            return out, stream.record_event()
+
+    @staticmethod
+    def _dispatch(calls: list) -> list:
+        """Run the blocks' enqueue calls one after another on this thread.
+        Nothing in a block waits on its device, so the streams (or cards)
+        compute while the host enqueues the next block. A host thread per
+        block made the sweep slower, not faster: the threads contend for
+        the interpreter lock, which each small op gives up and takes back
+        (PERF.md, phase 6a of ``chip_smoke.py`` times both)."""
+        return [call() for call in calls]
+
+    def _run_blocks(self, state: SweepState, bp: BlockPlan,
+                    sids: np.ndarray) -> SweepState:
+        """Gather each block's kept rows on the home device, enqueue the
+        blocks, then scatter their results back in block order. Padding
+        rows are not stepped: their results would be dropped."""
+        home = self.device
+        jobs = []
+        for d in range(self.n_devices):
+            rows = slice(d * bp.cap, (d + 1) * bp.cap)
+            ids = bp.take[rows][bp.keep[rows]]
+            if ids.size:
+                idx = torch.as_tensor(ids, device=home)
+                ops = (_gather(state.sim, idx), _gather(state.metrics, idx),
+                       _gather(state.params, idx),
+                       state.horizon.index_select(0, idx),
+                       _gather(state.trace, idx))
+                jobs.append((d, ids, idx, ops))
+        home_stream = ready = None
+        if home.type == "cuda":
+            home_stream = torch.cuda.current_stream(home)
+            ready = home_stream.record_event()
+        outs = self._dispatch([
+            functools.partial(self._run_block, d, ops, sids[ids],
+                              home_stream, ready)
+            for d, ids, _, ops in jobs])
+        for (_, ids, idx, _), ((sim, metrics, trace), finished) in zip(jobs, outs):
+            if finished is not None:
+                home_stream.wait_event(finished)
+            state = state._replace(
+                sim=_scatter(state.sim, sim, idx, ids.size),
+                metrics=_scatter(state.metrics, metrics, idx, ids.size),
+                trace=_scatter(state.trace, trace, idx, ids.size),
+            )
+        return state
+
     def _check_device(self, state: SweepState) -> None:
         """Raise unless every tensor of ``state`` is on the runner's device:
         a state built elsewhere is never stepped there silently."""
@@ -375,8 +644,14 @@ class SweepRunner:
         advances (the fleet supervisor's retry backoff and quarantine).
         """
         self._check_device(state)
-        for plan in self.plan_chunk(state, hold):
-            state = self._run_group(state, plan)
+        if self.n_devices > 1:
+            done, sids = self._host_bitmap(state)
+            bp = self._plan_blocks(done, sids, hold)
+            if bp is not None:
+                state = self._run_blocks(state, bp, sids)
+        else:
+            for plan in self.plan_chunk(state, hold):
+                state = self._run_group(state, plan)
         done = state.sim.t >= state.horizon
         return state._replace(done=done, chunk=state.chunk + 1)
 
@@ -399,6 +674,14 @@ class SweepRunner:
             if on_chunk is not None:
                 state = on_chunk(c, state)
         return state
+
+
+    def remesh(self, state: SweepState, devices) -> SweepState:
+        """Move a live sweep onto another device list (elastic scale up or
+        down). The state is moved to the new home device; its logical
+        order, and so every later bit, does not change."""
+        self._set_devices(devices)
+        return _map(lambda x: x.to(self.device), state)
 
 
 def completion_rate(state: SweepState) -> float:

@@ -117,6 +117,9 @@ class DatasetWriter:
             [s["index"] for s in self._shards] + self.repaired, default=-1
         ) + 1
         self._pending: dict[int, dict[str, Any]] = {}
+        # ids a begin_drain gathered whose finish_drain has not run yet:
+        # reserved, so that overlapping handles never drain an instance twice
+        self._inflight: set[int] = set()
 
     def _read_shard_ids(self, path: str) -> list[int] | None:
         """Instance ids of a shard npz, or None when the file is truncated
@@ -176,15 +179,18 @@ class DatasetWriter:
         """Gather, on the device, the rows of every newly finished instance
         (``done`` on the host, read from ``state`` when not given). Returns
         a handle for :meth:`finish_drain`, or None when nothing new
-        finished."""
+        finished. The handle's ids are reserved until it is finished, so a
+        second ``begin_drain`` before that skips them."""
         if done is None:
             done = state.done.cpu().numpy()
         new = [
             int(i) for i in np.flatnonzero(done)
             if int(i) not in self._written and int(i) not in self._pending
+            and int(i) not in self._inflight
         ]
         if not new:
             return None
+        self._inflight.update(new)
         idx = torch.as_tensor(new, device=state.done.device)
 
         def take(tree):
@@ -201,6 +207,7 @@ class DatasetWriter:
         if handle is None:
             return 0
         new, (metrics, params, horizon, sids, trace) = handle
+        self._inflight.difference_update(new)
         metrics, params, trace = _host(metrics), _host(params), _host(trace)
         horizon, sids = horizon.cpu().numpy(), sids.cpu().numpy()
         for j, i in enumerate(new):

@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -36,6 +37,9 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# the wrappers' launch counts are bumped from every thread that launches
+# (the sweep's block threads), so the read-modify-write holds this lock
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -92,10 +96,11 @@ def symbol(lib: str, name: str, argtypes):
 
 def launched(name: str, err: int, launches: dict[str, int]) -> None:
     """Raise if the launch of kernel ``name`` returned CUDA error ``err``;
-    else add one to ``launches[name]``."""
+    else add one to ``launches[name]``, exactly under threads."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    launches[name] += 1
+    with _COUNT_LOCK:
+        launches[name] += 1
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape,

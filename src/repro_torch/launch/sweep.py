@@ -16,6 +16,15 @@
 ``--fail-prob --hang-prob --straggler-prob --poison``
     the injected faults (``FaultModel.random_model`` from ``--seed``, over
     a ``--workers`` grid, the paper's instances per node);
+``--devices N --workers W``
+    blocks: the instance axis is packed into one block per device (every
+    visible card on ``cuda`` by default; on ``--device cpu`` the CPU N
+    times, 1 by default), and W is the instances per device, so the fault
+    injector's worker grid is N x W;
+``--pipeline`` / ``--no-pipeline``
+    commit each chunk (checkpoint, shards, journal, heartbeat) on an I/O
+    thread while the next chunk runs (the default), or synchronously; both
+    write the same bits;
 ``--max-retries --chunk-deadline``
     the retry budget before quarantine, and the journaled chunk deadline;
 ``--ckpt-dir --journal --heartbeat-file``
@@ -27,17 +36,15 @@
     (``--dataset-dir`` alone records every 10 steps);
 ``--seed --vary-horizon --out --device``.
 
-It prints what the reference launcher prints: the roster line, per-chunk
-completion, the final line with ``eligible`` completion, the fleet table
-and the summary JSON; and, per chunk, the host seconds of the chunk, its
-checkpoint save and its shard drain. ``--out`` also records the batched
-chunk calls and this process's kernel launch counts.
-
-Not ported yet, and refused: ``--devices`` above 1 and ``--pipeline``
-(host I/O overlapped with the next chunk), both ROADMAP queue 1 item 4. The
-port's loop is the synchronous one (the reference's ``--no-pipeline``); it
-writes the same states, shards and checkpoints, bit for bit, as the
-reference's pipelined default, which only moves the file writes in time.
+It prints what the reference launcher prints: the roster line (devices x
+workers and the I/O mode), per-chunk completion, the final line with
+``eligible`` completion, the fleet table and the summary JSON; and, per
+chunk, the host seconds of the chunk, its checkpoint save, its shard
+drain, its whole commit and the loop's wait for it; and last a ``[sweep]
+run:`` JSON line with the devices, the wall seconds, the batched chunk
+calls and this process's kernel launch counts. ``--out`` holds what the
+reference's does (summary, records, fault info), so two runs that differ
+only in ``--devices`` or ``--pipeline`` write the same file.
 """
 
 from __future__ import annotations
@@ -46,8 +53,6 @@ import argparse
 import json
 import os
 import time
-
-NOT_PORTED = "is not ported yet: it is ROADMAP queue 1 item 4"
 
 
 def _write_heartbeat(path: str, chunk: int, done: float) -> None:
@@ -108,17 +113,22 @@ def _parser(scenarios: list[str]) -> argparse.ArgumentParser:
     ap.add_argument("--journal", default=None,
                     help="append-only jsonl run journal (default: "
                          "<ckpt-dir>/journal.jsonl when --ckpt-dir is set)")
-    ap.add_argument("--devices", type=int, default=1,
-                    help="cards the instance axis is split over; only 1 "
-                         "is ported")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="devices the instance axis is packed over, one "
+                         "block each (default: every visible card on cuda, "
+                         "1 on the CPU; on the CPU the blocks share it)")
     ap.add_argument("--workers", type=int, default=1,
                     help="instances per device (the paper's per-node "
-                         "parallelism): the fault injector's worker grid")
+                         "parallelism): the fault injector's worker grid is "
+                         "devices x workers, and blocks are padded to a "
+                         "multiple of it")
     ap.add_argument("--pipeline", dest="pipeline", action="store_true",
-                    default=False,
-                    help="overlap host I/O with the next chunk (not ported)")
+                    default=True,
+                    help="commit each chunk on an I/O thread while the next "
+                         "one runs (the default)")
     ap.add_argument("--no-pipeline", dest="pipeline", action="store_false",
-                    help="the synchronous chunk loop (the default)")
+                    help="the synchronous chunk loop (same bits, no "
+                         "overlap)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--out", default=None, help="write records JSON here")
     ap.add_argument("--dataset-dir", default=None,
@@ -139,6 +149,8 @@ def _parser(scenarios: list[str]) -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     """Run the CLI; returns ``{"state", "summary", "info", "seconds",
     "group_calls", "timings"}`` for in-process callers."""
+    import torch
+
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.core.aggregate import aggregate_metrics, metrics_to_records
     from repro_torch.core.fault import FaultModel
@@ -153,21 +165,22 @@ def main(argv: list[str] | None = None) -> dict:
     from repro_torch.core.scenarios import list_scenarios
     from repro_torch.core.sweep import SweepConfig, SweepRunner
     from repro_torch.data.shards import DatasetWriter
+    from repro_torch.device import resolve_device
     from repro_torch.kernels import idm
+    from repro_torch.launch.mesh import sweep_devices
 
     ap = _parser(list_scenarios())
     args = ap.parse_args(argv)
     if args.workers < 1:
         ap.error("--workers must be >= 1 (instances per device)")
-    if args.devices < 1:
+    if args.devices is not None and args.devices < 1:
         ap.error("--devices must be >= 1")
-    if args.devices > 1:
-        raise NotImplementedError(f"--devices {args.devices} {NOT_PORTED} "
-                                  "(multi-GPU blocks)")
-    if args.pipeline:
-        raise NotImplementedError(f"--pipeline {NOT_PORTED} (pipelined host "
-                                  "I/O); the synchronous loop writes the "
-                                  "same bits")
+    home = resolve_device(args.device)
+    n_devices = args.devices
+    if n_devices is None:
+        n_devices = (torch.cuda.device_count() - home.index
+                     if home.type == "cuda" else 1)
+    devices = sweep_devices(n_devices, home)
     try:
         poison = tuple(int(p) for p in args.poison.split(",") if p.strip())
     except ValueError:
@@ -198,7 +211,7 @@ def main(argv: list[str] | None = None) -> dict:
         dispatch=args.dispatch,
         record=record,
     )
-    runner = SweepRunner(cfg, device=args.device,
+    runner = SweepRunner(cfg, devices=devices,
                          workers_per_device=args.workers)
     faults = FaultModel.random_model(
         n_workers=runner._n_workers(),
@@ -221,8 +234,10 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"[sweep] scenarios: {', '.join(cfg.scenarios)} "
           f"({'mixed round-robin' if len(cfg.scenarios) > 1 else 'uniform'}) "
           f"| dispatch {cfg.effective_dispatch} "
-          f"| neighbor impl {cfg.sim.neighbor_impl} | device {runner.device} "
-          f"x {args.workers} worker(s) | synchronous I/O"
+          f"| neighbor impl {cfg.sim.neighbor_impl} "
+          f"| {runner.n_devices} device(s) x {args.workers} worker(s) "
+          f"on {', '.join(str(d) for d in runner.devices)} "
+          f"| {'pipelined' if args.pipeline else 'synchronous'} I/O"
           + (f" | recording every {record_every} steps" if record else ""),
           flush=True)
 
@@ -241,20 +256,21 @@ def main(argv: list[str] | None = None) -> dict:
         timings.append(dict(chunk=c, **t))
         print(f"[sweep] chunk {c} host seconds: chunk {t['chunk_s']:.4f}, "
               f"checkpoint save {t['ckpt_s']:.4f}, shard drain "
-              f"{t['drain_s']:.4f}", flush=True)
+              f"{t['drain_s']:.4f}, commit {t['commit_s']:.4f}, waited "
+              f"{t['wait_s']:.4f}", flush=True)
 
     t0 = time.perf_counter()
     state, info = run_supervised(
         runner, faults, policy=policy, ckpt=ckpt, writer=writer,
-        journal=journal, chunk_deadline=args.chunk_deadline,
+        journal=journal, pipeline=args.pipeline,
+        chunk_deadline=args.chunk_deadline,
         on_progress=on_progress, on_timing=on_timing,
     )
     if ckpt is not None:
         ckpt.wait()
-    if runner.device.type == "cuda":
-        import torch
-
-        torch.cuda.synchronize(runner.device)
+    for dev in dict.fromkeys(runner.devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     summary = aggregate_metrics(
         state.metrics, scenario_ids=state.scenario_id,
@@ -279,10 +295,13 @@ def main(argv: list[str] | None = None) -> dict:
         )
         with open(args.out, "w") as f:
             json.dump({"summary": summary, "records": records,
-                       "fault_info": info, "group_calls": runner.group_calls,
-                       "launches": dict(idm.launches), "timings": timings},
-                      f, indent=1)
+                       "fault_info": info}, f, indent=1)
         print(f"[sweep] wrote dataset to {args.out}")
+    print("[sweep] run: " + json.dumps({
+        "devices": [str(d) for d in runner.devices], "workers": args.workers,
+        "pipeline": args.pipeline, "seconds": dt,
+        "group_calls": runner.group_calls, "launches": dict(idm.launches)}),
+        flush=True)
     return {"state": state, "summary": summary, "info": info, "seconds": dt,
             "group_calls": runner.group_calls, "timings": timings}
 

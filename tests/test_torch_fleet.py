@@ -231,11 +231,15 @@ def test_run_with_failures_resume_uses_absolute_chunk(tmp_path):
 
 
 def test_pipeline_is_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        run_supervised(runner(_cfg()), pipeline=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        run_with_failures(runner(_cfg()), FailureInjector(1, {}),
-                          pipeline=True)
+    """``pipeline=True`` is no longer refused: both loops accept it and
+    reach the synchronous loop's final state bit for bit."""
+    state, info = run_supervised(runner(_cfg()), pipeline=True)
+    assert info["completion_rate"] == 1.0
+    assert_states_equal(clean(), state)
+    state, info = run_with_failures(runner(_cfg()), FailureInjector(1, {}),
+                                    pipeline=True)
+    assert info["completion_rate"] == 1.0 and info["failure_events"] == []
+    assert_states_equal(clean(), state)
 
 
 def test_poison_quarantine_and_backoff(tmp_path):

@@ -1,8 +1,9 @@
 """The port stands alone: importing every ``repro_torch`` module and running
-its sweep launcher (plain, and recording with checkpoints, a dataset and
-injected faults), its process controller and its serve launcher on the CPU
-never loads ``jax`` or ``repro``; asking for ``cuda`` without a card raises
-instead of falling back to the CPU."""
+its sweep launcher (plain; recording with checkpoints, a dataset and
+injected faults; two blocks pipelined), its LM batches from that dataset
+and synthetic ones, its process controller and its serve launcher on the
+CPU never loads ``jax`` or ``repro``; asking for ``cuda`` without a card
+raises instead of falling back to the CPU."""
 
 import json
 import os
@@ -33,6 +34,20 @@ sys.argv = ["repro_torch.launch.sweep", "--device", "cpu", "--instances", "4",
             "--dataset-dir", "ds", "--ckpt-dir", "ck", "--fail-prob", "0.3",
             "--workers", "2", "--record-slots", "2", "--shard-size", "2"]
 runpy.run_module("repro_torch.launch.sweep", run_name="__main__")
+sys.argv = ["repro_torch.launch.sweep", "--device", "cpu", "--devices", "2",
+            "--pipeline", "--instances", "4", "--steps", "20",
+            "--chunk-steps", "10", "--slots", "8", "--record-every", "5",
+            "--dataset-dir", "ds2", "--ckpt-dir", "ck2", "--record-slots", "2",
+            "--shard-size", "2"]
+runpy.run_module("repro_torch.launch.sweep", run_name="__main__")
+from repro_torch.config.base import get_arch
+from repro_torch.core.scenario import SimConfig
+from repro_torch.data.sim_dataset import sim_token_batches
+from repro_torch.data.synthetic import synthetic_batches
+cfg = get_arch("gemma2-2b").reduced()
+next(sim_token_batches(cfg, SimConfig(n_slots=8), 2, 16, shard_dir="ds2",
+                       device="cpu"))
+next(synthetic_batches(cfg, 2, 16, device="cpu"))
 sys.argv = ["repro_torch.launch.controller", "--ckpt-dir", "ctl",
             "--poll", "0.1", "--", "--device", "cpu", "--instances", "2",
             "--steps", "10", "--chunk-steps", "10", "--slots", "8"]
@@ -66,12 +81,17 @@ def test_no_jax_or_reference_imports(tmp_path):
                  "repro_torch.models.lm", "repro_torch.models.recurrent",
                  "repro_torch.configs.recurrentgemma_2b",
                  "repro_torch.configs.rwkv6_3b", "repro_torch.serve.engine",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.launch.mesh",
+                 "repro_torch.data.sim_dataset", "repro_torch.data.synthetic"):
         assert name in result["modules"]
     assert proc.stdout.count("[serve] completed 2/2 requests") == 3
     records = json.loads(out.read_text())["records"]
     assert len(records) == 4 and all(r["steps"] == 20 for r in records)
     manifest = json.loads((tmp_path / "ds" / "manifest.json").read_text())
+    assert manifest["n_instances_written"] == 4
+    assert "2 device(s) x 1 worker(s)" in proc.stdout
+    assert "pipelined I/O" in proc.stdout
+    manifest = json.loads((tmp_path / "ds2" / "manifest.json").read_text())
     assert manifest["n_instances_written"] == 4
     assert (tmp_path / "ck" / "journal.jsonl").exists()
     assert "[controller] run complete after 1 attempt(s)" in proc.stdout
