@@ -21,7 +21,12 @@ Phases, in order; any failure raises and exits non-zero:
    8193 slots (past the sort's 8192, where the all-pairs kernel answers),
    and time kernel, plain version and bound beside the card's launch floor
    (a one-element in-place add, timed alike); the main table build's line
-   carries its bar of 0.008 ms and target of 0.004 ms;
+   carries its bar of 0.008 ms and target of 0.004 ms. ``idm_accel_kernel``
+   (which sorts and searches up to 8192 slots) must also equal its
+   all-pairs form (``idm._idm_accel_wide``) bit for bit at every shape,
+   B 256/1024 x N 128, 48 x 512, 65536 x 16, 2 x 8192 and 2 x 8193, and
+   each line up to 8192 slots times both forms; both bounds count the
+   comparisons a sort and binary searches need, not all-pairs tests;
 4. sweep  — the port's launcher in-process at full size (1024 instances,
    128 slots, the four-scenario mix, grouped dispatch, ``--neighbor-impl
    cuda``, ``--devices 1``): completion must reach 1.0 and the neighbor
@@ -35,10 +40,9 @@ Phases, in order; any failure raises and exits non-zero:
    (``devices=[cuda:0] * k``, a stream each) and, where there are as many
    cards, on distinct cards: each final ``SweepState`` must equal phase
    6's bit for bit and the neighbor launches must equal 2 x chunk_steps x
-   the batched calls made; at 25 steps, 1, 2 and 4 blocks enqueued in
-   turn (the runner) against a host thread per block; then phase 4's
-   sweep at full width through 2 blocks on one card for one chunk of 400
-   steps, its instance-steps/s and vehicle-steps/s beside phase 4's;
+   the batched calls made; then phase 4's sweep at full width through 2
+   blocks on one card for one chunk of 100 steps, its instance-steps/s and
+   vehicle-steps/s beside phase 4's;
 7. profile — host ms per step of one sweep group, and under
    ``torch.profiler`` the device's busy time, its share of the profiled
    wall time and of the unprofiled step, and the heaviest kernels;
@@ -153,8 +157,12 @@ MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 N_LANES = 4                       # 3 main lanes + ramp, as the sweep
 SWEEP = dict(instances=1024, slots=128, steps=1200, chunk_steps=400)
+# phase 6: the cuda = sort parity sweep, which phase 6a replays through
+# blocks and phase 7a records
+PARITY = dict(instances=64, steps=400)
 # phase 7a: a fault-free and a faulted, killed and resumed recording sweep
-RECORD = dict(instances=64, slots=128, steps=400, chunk_steps=100,
+RECORD = dict(instances=PARITY["instances"], slots=128,
+              steps=PARITY["steps"], chunk_steps=100,
               record_every=10, k_slots=8, workers=8, shard_size=16, poison=37)
 # phase 7b: the controller over the full-size recording sweep, chunks of 200
 # steps (six chunks, so both chaos kills land mid-run), 8 workers (the
@@ -166,11 +174,10 @@ PIPELINE = dict(instances=1024, slots=128, steps=1200, chunk_steps=200,
 # phase 7c: LM batches of phase 7b's dataset
 TOKENS = dict(batch=8, seq=1024, batches=4)
 # phase 6a: phase 4's sweep at full width timed through 2 blocks on one card
-# for one chunk (every chunk of phase 4 steps all instances, so one chunk's
-# rate is the sweep's; the one chunk keeps the script inside its time limit
-# on slower hosts), and the steps of the in-turn against threads timing
-BLOCKS_FULL = dict(instances=1024, steps=400)
-THREADS_STEPS = 25
+# for one chunk of 100 steps (every chunk of phase 4 steps all instances, so
+# one chunk's rate is the sweep's; the short chunk keeps the script inside
+# its time limit on slower hosts)
+BLOCKS_FULL = dict(instances=1024, steps=100)
 WORK = ROOT / "build" / "chip_smoke_run"  # checkpoints, datasets, journals
 SOURCE = "src/repro_torch/kernels/csrc/idm.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -212,6 +219,8 @@ WKV6_BAR_MS, WKV6_TARGET_MS = 1.0, 0.30
 # the same for the neighbor kernel's table build at the sweep's shape (B 256,
 # N 128, Q 4 rows) and for RG-LRU at B 1, S 6000, W 2560, f32
 NEIGHBOR_BAR_MS, NEIGHBOR_TARGET_MS = 0.008, 0.004
+# the most slots idm_accel_kernel sorts; past it the all-pairs form answers
+IDM_SORT_SLOTS = 8192
 RGLRU_BAR_MS, RGLRU_TARGET_MS = 0.20, 0.110
 
 
@@ -290,33 +299,24 @@ def query_rows(gen, mode: str, b: int, q: int, n: int, lane):
     build, row q asking for lane q: no query-lane tensor, as the sweep
     calls it), ``own`` (the vehicles' own lanes, Q 1, the sweep's single
     query) or ``lanes`` (random lanes per vehicle). Returns the
-    ``query_lanes`` argument (None for rows) and the ``[B, Q, N]`` lanes
-    the rows ask for (to count the work)."""
+    ``query_lanes`` argument (None for rows)."""
     import torch
 
     if mode == "rows":
-        rows = torch.arange(q, dtype=torch.int32, device=lane.device)
-        return None, rows[None, :, None].expand(b, q, n)
+        return None
     if mode == "own":
-        ql = lane[:, None, :].contiguous()
-    else:
-        ql = torch.randint(0, N_LANES, (b, q, n), generator=gen,
-                           device=lane.device, dtype=torch.int32)
-    return ql, ql
+        return lane[:, None, :].contiguous()
+    return torch.randint(0, N_LANES, (b, q, n), generator=gen,
+                         device=lane.device, dtype=torch.int32)
 
 
-def same_lane_pairs(lane, active, query_lanes) -> int:
-    """Ego/other pairs the search must test: active ego, active other in
-    the ego's query lane (counts this input's work, not the worst case)."""
-    import torch
-
-    lanes = int(max(lane.max(), query_lanes.max())) + 1
-    per_lane = torch.zeros((lane.shape[0], lanes), dtype=torch.int64,
-                           device=lane.device)
-    per_lane.scatter_add_(1, lane.long(), active.long())
-    hits = per_lane.gather(1, query_lanes.flatten(1).long())
-    hits = hits.view(query_lanes.shape) * active[:, None, :]
-    return int(hits.sum())
+def sort_search_ops(b: int, n: int, searches: int) -> int:
+    """Comparisons the lead/follower search needs at least: a comparison
+    sort of each instance's n keys (n log2 n) and one binary search (log2
+    n) for each of ``searches`` queries a slot. The all-pairs form's n^2
+    pair tests are one way to answer, not work the function needs."""
+    lg = max(1, (n - 1).bit_length())
+    return b * n * lg * (1 + searches)
 
 
 def bound(bytes_moved: float, ops: float,
@@ -347,7 +347,7 @@ def kernel_phase(torch, idm, ref):
     results = []
     for b, n, q, mode in shapes:
         pos, lane, active = rand_world(gen, b, n)
-        ql, asked = query_rows(gen, mode, b, q, n, lane)
+        ql = query_rows(gen, mode, b, q, n, lane)
         n_rows = q if ql is None else None
         got = idm.neighbor_kernel(pos, lane, active, ql, n_rows=n_rows,
                                   veh_len=4.5)
@@ -368,7 +368,7 @@ def kernel_phase(torch, idm, ref):
             pos, lane, active, ql, 4.5, n_rows=n_rows), reps=2)
         bytes_moved = (b * n * (4 + 4 + 1) + b * q * n * 18
                        + (0 if ql is None else b * q * n * 4))
-        ops = 3 * same_lane_pairs(lane, active, asked)
+        ops = sort_search_ops(b, n, q)
         bound_ms, bound_by = bound(bytes_moved, ops)
         results.append(dict(B=b, N=n, Q=q, rows=mode, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
@@ -381,7 +381,8 @@ def kernel_phase(torch, idm, ref):
             f"({bound_by}), launch floor {floor_ms:.5f} ms{bar}")
 
     idm_results = []
-    for b, n in ((b_main, n_main), (1024, 128), (48, 512), (65536, 16)):
+    for b, n in ((b_main, n_main), (1024, 128), (48, 512), (65536, 16),
+                 (2, 8192), (2, 8193)):
         pos, lane, active = rand_world(gen, b, n)
 
         def rnd(lo, hi):
@@ -391,22 +392,34 @@ def kernel_phase(torch, idm, ref):
         a_max, b_comf, s0 = rnd(1.0, 2.5), rnd(1.5, 3.0), rnd(1.0, 2.5)
         args = (pos, vel, lane, active, v0, T, a_max, b_comf, s0)
         got = idm.idm_accel_kernel(*args, veh_len=4.5)
+        wide = idm._idm_accel_wide(*args, veh_len=4.5)
         want = ref.ref_idm_accel(*args, 4.5)
         torch.cuda.synchronize()
+        if not torch.equal(got, wide):
+            raise AssertionError(
+                f"idm_accel_kernel != its all-pairs form at B={b} N={n} "
+                f"({int((got != wide).sum())} elements differ)")
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
         err = float((got - want).abs().max())
         ms = device_ms(lambda: idm.idm_accel_kernel(*args, veh_len=4.5))
+        form = "sort" if n <= IDM_SORT_SLOTS else "all-pairs"
+        # past the sort's slots the kernel is the all-pairs form: one timing
+        wide_ms = (device_ms(lambda: idm._idm_accel_wide(*args, veh_len=4.5))
+                   if form == "sort" else ms)
         plain_ms = device_ms(lambda: ref.ref_idm_accel(*args, 4.5), reps=2)
         bytes_moved = b * n * (7 * 4 + 4 + 1) + b * n * 4
-        own = lane[:, None, :]
-        ops = 3 * same_lane_pairs(lane, active, own) + 16 * b * n
+        # one own-lane search an ego, then the IDM formula's 16 operations
+        ops = sort_search_ops(b, n, 1) + 16 * b * n
         bound_ms, bound_by = bound(bytes_moved, ops)
-        idm_results.append(dict(B=b, N=n, max_abs_err=err, ms=ms,
-                                plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, floor_ms=floor_ms))
-        log(f"idm_accel_kernel B={b} N={n}: max |err| {err:.3g} (tol 1e-6); "
-            f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}), launch floor {floor_ms:.5f} ms")
+        idm_results.append(dict(B=b, N=n, form=form, max_abs_err=err, ms=ms,
+                                all_pairs_ms=wide_ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                floor_ms=floor_ms))
+        log(f"idm_accel_kernel B={b} N={n} ({form}): bit-equal to the "
+            f"all-pairs form, max |err| {err:.3g} (tol 1e-6); kernel "
+            f"{ms:.5f} ms, all-pairs {wide_ms:.5f} ms, plain {plain_ms:.5f} "
+            f"ms, bound {bound_ms:.5f} ms ({bound_by}), launch floor "
+            f"{floor_ms:.5f} ms")
     return results, idm_results
 
 
@@ -544,8 +557,8 @@ def record_phase(torch, idm, plain) -> dict:
     faulted run did not quarantine, and the poison instance must be
     reported quarantined. Recording on and off must give the same final
     simulator state, bit for bit: ``plain`` is phase 6's ``cuda`` run of
-    the same sweep without recording (in one chunk of 400 steps; the chunk
-    size changes no bit). Both runs go once more pipelined (the fault-free
+    the same sweep without recording (in one chunk of all its steps; the
+    chunk size changes no bit). Both runs go once more pipelined (the fault-free
     one through 2 blocks on one card, 2 x 4 workers): their final states,
     every shard array and the faulted run's journal must equal the
     synchronous runs' bit for bit."""
@@ -705,18 +718,15 @@ def record_phase(torch, idm, plain) -> dict:
 
 
 def blocks_phase(torch, idm, plain, sweep: dict) -> dict:
-    """Phase 6a: the block executor. Phase 6's sweep (64 instances x 400
-    steps, one chunk, ``cuda`` neighbors) through 2 and 4 blocks on one
+    """Phase 6a: the block executor. Phase 6's sweep (``PARITY``, one
+    chunk, ``cuda`` neighbors) through 2 and 4 blocks on one
     card (``devices=[cuda:0] * k``: k streams, enqueued in turn) and,
     where there are as many cards, on distinct cards: each final
     ``SweepState`` must equal phase 6's bit for bit, and the neighbor
     launches must equal 2 x chunk_steps x the batched calls made (the
-    counts set to 0 just before each run). At a short depth, 1, 2 and 4
-    blocks on one card enqueued in turn (the runner) against a host thread
-    per block. Then phase 4's sweep at full width through 2 blocks on one
-    card for one chunk (``BLOCKS_FULL``), its rates beside phase 4's."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    counts set to 0 just before each run). Then phase 4's sweep at full
+    width through 2 blocks on one card for one chunk (``BLOCKS_FULL``), its
+    rates beside phase 4's."""
     from repro_torch.core.fleet import run_supervised
     from repro_torch.core.scenario import SimConfig
     from repro_torch.core.scenarios import list_scenarios
@@ -750,7 +760,8 @@ def blocks_phase(torch, idm, plain, sweep: dict) -> dict:
                 f"{runner.group_calls} = {want}")
         return state, wall, launches, runner.group_calls
 
-    small = cfg(64, 400, 400)
+    n_par, steps_par = PARITY["instances"], PARITY["steps"]
+    small = cfg(n_par, steps_par, steps_par)
     layouts = [("one card", k, [torch.device("cuda", 0)] * k) for k in (2, 4)]
     for k in (2, 4):
         if torch.cuda.device_count() >= k:
@@ -764,42 +775,13 @@ def blocks_phase(torch, idm, plain, sweep: dict) -> dict:
         out["launches"] += launches
         log(f"blocks: phase 6's sweep through {k} blocks on {where}: "
             f"final SweepState = phase 6's bit for bit; wall {wall:.3f} s, "
-            f"{64 * 400 / wall:.1f} instance-steps/s, neighbor_kernel "
-            f"launches {launches} = 2 x 400 x {calls}")
+            f"{n_par * steps_par / wall:.1f} instance-steps/s, "
+            f"neighbor_kernel launches {launches} = 2 x {steps_par} x {calls}")
     if torch.cuda.device_count() < 2:
         log("blocks: one card visible: the distinct-card layouts not run")
 
-    # the runner enqueues blocks in turn from one thread; a host thread per
-    # block, timed against it in the same call at a short depth
-    class ThreadedBlocks(SweepRunner):
-        @staticmethod
-        def _dispatch(calls):
-            with ThreadPoolExecutor(len(calls)) as pool:
-                return [f.result() for f in [pool.submit(c) for c in calls]]
-
-    short = cfg(64, THREADS_STEPS, THREADS_STEPS)
-    out["threads"] = []
-    for k in (1, 2, 4):
-        devices = [torch.device("cuda", 0)] * k
-        row = dict(blocks=k, in_turn_s=run(short, devices)[1])
-        if k > 1:
-            runner = ThreadedBlocks(short, devices=devices)
-            state = runner.init()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            runner.run(state)
-            torch.cuda.synchronize()
-            row["threads_s"] = time.perf_counter() - t0
-        out["threads"].append(row)
-    log("blocks: 64 instances x " + str(THREADS_STEPS) + " steps on one "
-        "card, enqueued in turn from one thread against a host thread per "
-        "block: " + "; ".join(
-            f"{r['blocks']} block(s) {r['in_turn_s']:.3f} s"
-            + (f" in turn, {r['threads_s']:.3f} s threaded"
-               if "threads_s" in r else "") for r in out["threads"]))
-
     n, steps = BLOCKS_FULL["instances"], BLOCKS_FULL["steps"]
-    full = cfg(n, steps, SWEEP["chunk_steps"])
+    full = cfg(n, steps, steps)
     state, wall, launches, calls = run(full, [torch.device("cuda", 0)] * 2)
     out["launches"] += launches
     m = state.metrics
@@ -1743,15 +1725,16 @@ def main() -> None:
         "(sort impl): counters equal, floats within rtol 1e-5")
 
     # 6. cuda == sort on the card, bit for bit
-    parity = ["--instances", "64", "--slots", str(SWEEP["slots"]), "--steps",
-              "400", "--chunk-steps", "400", "--scenario-mix", "all",
+    parity = ["--instances", str(PARITY["instances"]), "--slots",
+              str(SWEEP["slots"]), "--steps", str(PARITY["steps"]),
+              "--chunk-steps", str(PARITY["steps"]), "--scenario-mix", "all",
               "--dispatch", "grouped", "--seed", "0", "--device", "cuda"]
     with contextlib.redirect_stdout(io.StringIO()):
         a = launcher.main(parity + ["--neighbor-impl", "cuda"])
         b = launcher.main(parity + ["--neighbor-impl", "sort"])
     states_equal(torch, a["state"], b["state"])
     log("parity: cuda and sort give a bit-identical final SweepState "
-        "(64 instances, 400 steps)")
+        f"({PARITY['instances']} instances, {PARITY['steps']} steps)")
 
     # 6a. the same sweep through blocks, and phase 4's through 2 blocks
     blocks = blocks_phase(torch, idm, a["state"], sweep)
@@ -1787,9 +1770,10 @@ def main() -> None:
              replaces="src/repro/kernels/idm.py:130",
              launches=counts["idm_accel_kernel"],
              max_abs_err=max(r["max_abs_err"] for r in idm_results),
-             ms=main_idm["ms"], plain_ms=main_idm["plain_ms"],
-             bound_ms=main_idm["bound_ms"], bound_by=main_idm["bound_by"],
-             library_ms=None, shapes=idm_results),
+             ms=main_idm["ms"], all_pairs_ms=main_idm["all_pairs_ms"],
+             plain_ms=main_idm["plain_ms"], bound_ms=main_idm["bound_ms"],
+             bound_by=main_idm["bound_by"], library_ms=None,
+             shapes=idm_results),
     ]
 
     # 8. flash attention against its plain version

@@ -1,7 +1,8 @@
 // Neighborhood search and IDM acceleration for Hopper (sm_90a).
 //
-// Two kernels behind a plain C interface (loaded with ctypes by
-// repro_torch/kernels/idm.py). Each C entry launches on the caller's stream,
+// Two searches behind a plain C interface (loaded with ctypes by
+// repro_torch/kernels/idm.py), each a sort form up to 8192 slots and an
+// all-pairs form past it. Each C entry launches on the caller's stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 //
 // Built without --use_fast_math: the neighbor contract is bit-exact, and
@@ -185,53 +186,39 @@ __device__ __forceinline__ void answer_rows(
   }
 }
 
-template <int E>
-__global__ void __launch_bounds__(kMaxThreads)
-neighbor_mq_kernel(const float* __restrict__ pos,
-                   const int32_t* __restrict__ lane,
-                   const uint8_t* __restrict__ active,
-                   const int32_t* __restrict__ query_lanes, int Q, int N,
-                   int P, float veh_len, int32_t* __restrict__ lead_idx,
-                   float* __restrict__ lead_gap, uint8_t* __restrict__ has_lead,
-                   int32_t* __restrict__ foll_idx, float* __restrict__ foll_gap,
-                   uint8_t* __restrict__ has_foll) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* s_key = reinterpret_cast<uint64_t*>(smem);
-  int32_t* s_slot = reinterpret_cast<int32_t*>(s_key + P);
-
-  const int t = threadIdx.x;  // blockDim.x = P / E
-  const int64_t b = blockIdx.x;
-  const float* pb = pos + b * N;
-  const int32_t* lb = lane + b * N;
-  const uint8_t* ab = active + b * N;
-
-  // 1. this thread's E vehicles, p = t E .. t E + E - 1: keys for the sort,
-  // and, kept for the search, their positions and flags (and with one
-  // vehicle a thread, its first rows' query lanes, loaded before the sort)
+// Stages 1-2 of both sort kernels (neighbor_mq_kernel, idm_accel_sort):
+// instance pb/lb/ab of N slots, P entries, this thread t holding E of them.
+//   1. this thread's E vehicles, p = t E .. t E + E - 1: keys for the sort,
+//      and, kept for the search, their positions, flags and lanes; then
+//      pre() (a kernel's own loads, issued before the sort so that their
+//      latency hides under it);
+//   2. the bitonic sort of the P entries, ascending; up to 128 entries,
+//      each warp sorts its 32 and the runs are merged by rank.
+// Leaves the sorted keys and their slots in s_key, s_slot (after a
+// __syncthreads) and returns m, the active vehicles: the sorted keys'
+// length.
+template <int E, class Pre>
+__device__ __forceinline__ int sort_instance(
+    const float* __restrict__ pb, const int32_t* __restrict__ lb,
+    const uint8_t* __restrict__ ab, int N, int P, int t,
+    uint64_t* __restrict__ s_key, int32_t* __restrict__ s_slot,
+    float (&pos_r)[E], bool (&act_r)[E], int32_t (&lane_r)[E], Pre pre) {
   uint64_t key[E];
   int slot[E];
-  float pos_r[E];
-  bool act_r[E];
-  int32_t ql0[kRows] = {};
-  int m = 0;  // active vehicles: the sorted keys' length
+  int m = 0;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int p = t * E + e;
     pos_r[e] = p < N ? pb[p] : 0.0f;
     act_r[e] = p < N && ab[p] != 0;
-    key[e] = act_r[e] ? sort_key(lb[p], pos_r[e]) : ~0ull;
+    lane_r[e] = act_r[e] ? lb[p] : 0;
+    key[e] = act_r[e] ? sort_key(lane_r[e], pos_r[e]) : ~0ull;
     slot[e] = p;
   }
-  if (E == 1 && query_lanes && t < N) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      ql0[r] = query_lanes[(b * Q + min(r, Q - 1)) * N + t];
-  }
+  pre();
 #pragma unroll
   for (int e = 0; e < E; ++e) m += __syncthreads_count(act_r[e]);
 
-  // 2. bitonic sort of the P entries, ascending; up to 128 entries, each
-  // warp sorts its 32 and step 2b merges the runs
   const bool merge = P <= 4 * 32 && E == 1;
   const int sorted = merge ? 32 : P;  // the network sorts runs this long
   for (int k = 2; k <= sorted; k <<= 1) {
@@ -312,6 +299,41 @@ neighbor_mq_kernel(const float* __restrict__ pos,
     s_slot[place] = slot[0];
     __syncthreads();
   }
+  return m;
+}
+
+template <int E>
+__global__ void __launch_bounds__(kMaxThreads)
+neighbor_mq_kernel(const float* __restrict__ pos,
+                   const int32_t* __restrict__ lane,
+                   const uint8_t* __restrict__ active,
+                   const int32_t* __restrict__ query_lanes, int Q, int N,
+                   int P, float veh_len, int32_t* __restrict__ lead_idx,
+                   float* __restrict__ lead_gap, uint8_t* __restrict__ has_lead,
+                   int32_t* __restrict__ foll_idx, float* __restrict__ foll_gap,
+                   uint8_t* __restrict__ has_foll) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* s_key = reinterpret_cast<uint64_t*>(smem);
+  int32_t* s_slot = reinterpret_cast<int32_t*>(s_key + P);
+
+  const int t = threadIdx.x;  // blockDim.x = P / E
+  const int64_t b = blockIdx.x;
+
+  // 1-2: the sorted instance; with one vehicle a thread, its first rows'
+  // query lanes are loaded before the sort
+  float pos_r[E];
+  bool act_r[E];
+  int32_t lane_r[E];
+  int32_t ql0[kRows] = {};
+  const int m = sort_instance<E>(
+      pos + b * N, lane + b * N, active + b * N, N, P, t, s_key, s_slot,
+      pos_r, act_r, lane_r, [&] {
+        if (E == 1 && query_lanes && t < N) {
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            ql0[r] = query_lanes[(b * Q + min(r, Q - 1)) * N + t];
+        }
+      });
 
   // 3. every (row, ego) of this thread's vehicles: search, then the lowest
   // slot at the nearest gap
@@ -420,73 +442,207 @@ neighbor_mq_wide(const float* __restrict__ pos,
 //
 // The same-lane lead search of neighbor_mq (lead only, query lane = own
 // lane) carrying the lead's velocity, fused with the IDM epilogue of
-// repro/kernels/idm.py:74-92. Bound on an H100 SXM: B*N^2 pair tests, and
-// nine [B,N] inputs read once plus one f32 [B,N] output at 3.35 TB/s.
-// The epilogue uses the _rn intrinsics so that nvcc does not contract it
-// into fused multiply-adds: each operation rounds as the plain PyTorch
-// version's separate element-wise operations do. First, simple form: one
-// thread per ego; each block stages the instance one 128-wide tile at a
-// time in shared memory; the (instance, ego tile) pairs run along
-// gridDim.x, so B is capped only by B * ceil(N / 128) < 2^31.
+// repro/kernels/idm.py:74-92. Bound on an H100 SXM: bytes, nine [B,N]
+// inputs read once plus one f32 [B,N] output at 3.35 TB/s.
+//
+// Design, for N <= kMaxSlots (idm_accel_sort): one block per instance (B on
+// gridDim.x), which sorts the instance's (lane, position) keys with their
+// slots as neighbor_mq_kernel does (sort_instance), the velocities staged
+// in shared memory by slot beside them. Each ego then makes one search,
+// for its own key sort_key(lane_i, pos_i): the lead is the first entry
+// past pos_i's tie group, if it lies in the ego's lane; from it, every
+// further entry of the lane whose f32 gap equals the first one's is
+// walked, keeping the lowest slot (lowest_slot), and that slot's velocity
+// is the lead's. So where two vehicles share a position, or their gaps
+// round to one f32 value while the nearer position is not the lowest
+// slot, the lead is the lowest slot and its velocity goes into dv: exactly
+// the first-index argmin of the all-pairs scan and of the Pallas kernel
+// (argmin inside a tile, strict < across tiles). An inactive ego has no
+// lead and still gets the epilogue. Work per instance: O(P log^2 P) for
+// the sort and O(N log N) for the searches, against N^2 pair tests.
+//
+// Past kMaxSlots (the keys would not fit shared memory) the same C entry
+// launches the all-pairs form, idm_accel_wide: one thread per ego walks
+// the instance one 128-wide shared-memory tile at a time in slot order
+// with a strict < update; the (instance, ego tile) pairs run along
+// gridDim.x. idm_accel_wide_launch exports it at any N, as the oracle that
+// the sort form equals bit for bit.
+//
+// Both forms end in idm_epilogue, whose _rn intrinsics keep nvcc from
+// contracting it into fused multiply-adds: each operation rounds as the
+// plain PyTorch version's separate element-wise operations do, and the two
+// forms differ only if their leads do.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kBlock)
-idm_accel_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
-                 const int32_t* __restrict__ lane, const uint8_t* __restrict__ active,
-                 const float* __restrict__ v0, const float* __restrict__ T,
-                 const float* __restrict__ a_max, const float* __restrict__ b_comf,
-                 const float* __restrict__ s0, int N, float veh_len,
-                 float* __restrict__ acc) {
+
+struct IdmArgs {
+  const float* __restrict__ pos;
+  const float* __restrict__ vel;
+  const int32_t* __restrict__ lane;
+  const uint8_t* __restrict__ active;
+  const float* __restrict__ v0;
+  const float* __restrict__ T;
+  const float* __restrict__ a_max;
+  const float* __restrict__ b_comf;
+  const float* __restrict__ s0;
+  int N;
+  float veh_len;
+  float* __restrict__ acc;
+};
+
+// The ego's own inputs to the epilogue, element k of the [B, N] arrays.
+struct IdmEgo {
+  float v, v0, T, am, bc, s0;
+};
+__device__ __forceinline__ IdmEgo idm_ego(const IdmArgs& a, int64_t k) {
+  return {a.vel[k], a.v0[k], a.T[k], a.a_max[k], a.b_comf[k], a.s0[k]};
+}
+
+// IDM for ego g with lead gap lg (kInf: no lead) and lead velocity vlead.
+__device__ __forceinline__ float idm_epilogue(const IdmEgo& g, float lg,
+                                              float vlead, float veh_len) {
+  const bool has = lg < 0.5f * kInf;
+  const float gap = fmaxf(has ? __fsub_rn(lg, veh_len) : kInf, 0.1f);
+  const float dv = has ? __fsub_rn(g.v, vlead) : 0.f;
+  const float denom = __fmul_rn(2.0f, __fsqrt_rn(__fmul_rn(g.am, g.bc)));
+  const float push = __fadd_rn(__fmul_rn(g.v, g.T),
+                               __fdiv_rn(__fmul_rn(g.v, dv), denom));
+  const float s_star = __fadd_rn(g.s0, fmaxf(0.f, push));
+  const float r = __fdiv_rn(g.v, fmaxf(g.v0, 0.1f));
+  const float r2 = __fmul_rn(r, r);
+  const float q = __fdiv_rn(s_star, gap);
+  return __fmul_rn(g.am, __fsub_rn(__fsub_rn(1.0f, __fmul_rn(r2, r2)),
+                                   __fmul_rn(q, q)));
+}
+
+template <int E>
+__global__ void __launch_bounds__(kMaxThreads) idm_accel_sort(IdmArgs a,
+                                                              int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* s_key = reinterpret_cast<uint64_t*>(smem);
+  int32_t* s_slot = reinterpret_cast<int32_t*>(s_key + P);
+  float* s_vel = reinterpret_cast<float*>(s_slot + P);
+
+  const int t = threadIdx.x;  // blockDim.x = P / E
+  const int N = a.N;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * N;
+
+  // 1-2: the sorted instance; before the sort, the velocities go to shared
+  // memory by slot and, with one vehicle a thread, its own epilogue inputs
+  // into registers
+  float pos_r[E];
+  bool act_r[E];
+  int32_t lane_r[E];
+  IdmEgo ego{};
+  const int m = sort_instance<E>(
+      a.pos + row, a.lane + row, a.active + row, N, P, t, s_key, s_slot,
+      pos_r, act_r, lane_r, [&] {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int p = t * E + e;
+          if (p < N) s_vel[p] = a.vel[row + p];
+        }
+        if (E == 1 && t < N) ego = idm_ego(a, row + t);
+      });
+
+  // 3. every ego of this thread: its own key's search, the lowest slot at
+  // the nearest gap ahead, its velocity, the epilogue
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = t * E + e;
+    if (i >= N) break;
+    float lg = kInf, vlead = 0.f;
+    if (act_r[e]) {
+      const uint64_t tk = sort_key(lane_r[e], pos_r[e]);
+      int lo = 0;  // the number of keys below tk, as in answer_rows
+      for (int s = P >> 1; s > 0; s >>= 1)
+        if (s_key[lo + s - 1] < tk) lo += s;
+      int c = min(lo + (s_key[lo] < tk ? 1 : 0), m);
+      while (c < m && s_key[c] == tk) ++c;  // pos_i's tie group
+      const uint32_t lane_b = key_lane(tk);
+      if (c < m && key_lane(s_key[c]) == lane_b)
+        vlead = s_vel[lowest_slot(s_key, s_slot, c, 1, m, lane_b, pos_r[e],
+                                  lg)];
+    }
+    a.acc[row + i] = idm_epilogue(E == 1 ? ego : idm_ego(a, row + i), lg,
+                                  vlead, a.veh_len);
+  }
+}
+
+template <int E>
+int idm_accel_sort_run(const IdmArgs& a, int B, int P, cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(P) * (sizeof(uint64_t) + sizeof(int32_t) +
+                                sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        idm_accel_sort<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  idm_accel_sort<E><<<B, P / E, smem, stream>>>(a, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void __launch_bounds__(kBlock) idm_accel_wide(IdmArgs a) {
   __shared__ float s_pos[kBlock];
   __shared__ float s_vel[kBlock];
   __shared__ int32_t s_lane[kBlock];
   __shared__ uint8_t s_act[kBlock];
 
+  const int N = a.N;
   const int tiles = (N + kBlock - 1) / kBlock;
-  const int b = blockIdx.x / tiles;
+  const int64_t b = blockIdx.x / tiles;
   const int i = (blockIdx.x % tiles) * kBlock + threadIdx.x;
   const bool valid = i < N;
-  const size_t row = static_cast<size_t>(b) * N;
+  const int64_t row = b * N;
 
-  const float my_pos = valid ? pos[row + i] : 0.f;
-  const bool my_act = valid && active[row + i] != 0;
-  const int32_t my_lane = valid ? lane[row + i] : 0;
+  const float my_pos = valid ? a.pos[row + i] : 0.f;
+  const bool my_act = valid && a.active[row + i] != 0;
+  const int32_t my_lane = valid ? a.lane[row + i] : 0;
 
   float lg = kInf, vlead = 0.f;
   for (int j0 = 0; j0 < N; j0 += kBlock) {
     const int j = j0 + threadIdx.x;
     if (j < N) {
-      s_pos[threadIdx.x] = pos[row + j];
-      s_vel[threadIdx.x] = vel[row + j];
-      s_lane[threadIdx.x] = lane[row + j];
-      s_act[threadIdx.x] = active[row + j];
+      s_pos[threadIdx.x] = a.pos[row + j];
+      s_vel[threadIdx.x] = a.vel[row + j];
+      s_lane[threadIdx.x] = a.lane[row + j];
+      s_act[threadIdx.x] = a.active[row + j];
     }
     __syncthreads();
     const int jn = min(kBlock, N - j0);
     if (my_act) {
       for (int t = 0; t < jn; ++t) {
         if (s_act[t] && s_lane[t] == my_lane) {
-          const float d = s_pos[t] - my_pos;
+          const float d = __fsub_rn(s_pos[t], my_pos);
           if (d > 0.f && d < lg) { lg = d; vlead = s_vel[t]; }
         }
       }
     }
     __syncthreads();
   }
-  if (!valid) return;
-  const float v = vel[row + i];
-  const float am = a_max[row + i];
-  const bool has = lg < 0.5f * kInf;
-  const float gap = fmaxf(has ? __fsub_rn(lg, veh_len) : kInf, 0.1f);
-  const float dv = has ? __fsub_rn(v, vlead) : 0.f;
-  const float denom = __fmul_rn(2.0f, __fsqrt_rn(__fmul_rn(am, b_comf[row + i])));
-  const float push = __fadd_rn(__fmul_rn(v, T[row + i]),
-                               __fdiv_rn(__fmul_rn(v, dv), denom));
-  const float s_star = __fadd_rn(s0[row + i], fmaxf(0.f, push));
-  const float r = __fdiv_rn(v, fmaxf(v0[row + i], 0.1f));
-  const float r2 = __fmul_rn(r, r);
-  const float g = __fdiv_rn(s_star, gap);
-  acc[row + i] = __fmul_rn(am, __fsub_rn(__fsub_rn(1.0f, __fmul_rn(r2, r2)),
-                                         __fmul_rn(g, g)));
+  if (valid)
+    a.acc[row + i] = idm_epilogue(idm_ego(a, row + i), lg, vlead, a.veh_len);
+}
+
+int idm_accel_wide_run(const IdmArgs& a, int B, cudaStream_t stream) {
+  const int64_t blocks =
+      static_cast<int64_t>(B) * ((a.N + kBlock - 1) / kBlock);
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  idm_accel_wide<<<static_cast<unsigned>(blocks), kBlock, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+IdmArgs idm_args(const void* pos, const void* vel, const void* lane,
+                 const void* active, const void* v0, const void* T,
+                 const void* a_max, const void* b_comf, const void* s0, int N,
+                 float veh_len, void* acc) {
+  return {static_cast<const float*>(pos),    static_cast<const float*>(vel),
+          static_cast<const int32_t*>(lane), static_cast<const uint8_t*>(active),
+          static_cast<const float*>(v0),     static_cast<const float*>(T),
+          static_cast<const float*>(a_max),  static_cast<const float*>(b_comf),
+          static_cast<const float*>(s0),     N,
+          veh_len,                           static_cast<float*>(acc)};
 }
 
 }  // namespace
@@ -549,23 +705,45 @@ int neighbor_mq_launch(const void* pos, const void* lane, const void* active,
 }
 
 // The nine [B, N] inputs (f32; lane i32, active bool) and acc f32 [B, N],
-// all contiguous. Returns the CUDA error of the launch.
+// all contiguous: the sort form up to kMaxSlots slots, the all-pairs form
+// past it. Returns the CUDA error of the launch.
 int idm_accel_launch(const void* pos, const void* vel, const void* lane,
                      const void* active, const void* v0, const void* T,
                      const void* a_max, const void* b_comf, const void* s0,
                      int B, int N, float veh_len, void* acc, void* stream) {
   if (B < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
-  const int64_t blocks = static_cast<int64_t>(B) * ((N + kBlock - 1) / kBlock);
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  idm_accel_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pos), static_cast<const float*>(vel),
-      static_cast<const int32_t*>(lane), static_cast<const uint8_t*>(active),
-      static_cast<const float*>(v0), static_cast<const float*>(T),
-      static_cast<const float*>(a_max), static_cast<const float*>(b_comf),
-      static_cast<const float*>(s0), N, veh_len, static_cast<float*>(acc));
-  return static_cast<int>(cudaGetLastError());
+  const IdmArgs a = idm_args(pos, vel, lane, active, v0, T, a_max, b_comf,
+                             s0, N, veh_len, acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N > kMaxSlots) return idm_accel_wide_run(a, B, s);
+  int P = 32;
+  while (P < N) P <<= 1;
+  switch (P / kMaxThreads) {  // E = P / T keys a thread
+    case 0:
+    case 1:
+      return idm_accel_sort_run<1>(a, B, P, s);
+    case 2:
+      return idm_accel_sort_run<2>(a, B, P, s);
+    case 4:
+      return idm_accel_sort_run<4>(a, B, P, s);
+    default:
+      return idm_accel_sort_run<8>(a, B, P, s);
+  }
+}
+
+// The same arguments; the all-pairs form at any N (the sort form's oracle).
+int idm_accel_wide_launch(const void* pos, const void* vel, const void* lane,
+                          const void* active, const void* v0, const void* T,
+                          const void* a_max, const void* b_comf,
+                          const void* s0, int B, int N, float veh_len,
+                          void* acc, void* stream) {
+  if (B < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || N == 0) return 0;
+  return idm_accel_wide_run(
+      idm_args(pos, vel, lane, active, v0, T, a_max, b_comf, s0, N, veh_len,
+               acc),
+      B, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -26,7 +26,8 @@ from repro_torch.kernels.build import launched, symbol
 from repro_torch.kernels.ref import ref_idm_accel, ref_neighbor_mq
 
 #: launch counts per kernel; only a real kernel launch increments them
-launches = {"neighbor_kernel": 0, "idm_accel_kernel": 0}
+#: (``idm_accel_wide``: the all-pairs oracle, which no path calls)
+launches = {"neighbor_kernel": 0, "idm_accel_kernel": 0, "idm_accel_wide": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -97,29 +98,56 @@ def idm_accel_kernel(pos, vel, lane, active, v0, T, a_max, b_comf, s0, *,
     """Same-lane lead search fused with IDM: nine ``[B, N]`` inputs (f32,
     except ``lane`` i32 and ``active`` bool) → f32 ``[B, N]`` accelerations,
     within ``rtol = atol = 1e-6`` of
-    :func:`repro_torch.kernels.ref.ref_idm_accel`."""
+    :func:`repro_torch.kernels.ref.ref_idm_accel`.
+
+    On the card, N up to 8192 runs the one-block sort and search of
+    :func:`neighbor_kernel` (each ego's lead: the lowest slot at the nearest
+    f32 gap ahead in its lane), larger N the all-pairs kernel
+    (``csrc/idm.cu``); one launch either way. The lead, and so the result,
+    equals the all-pairs form's bit for bit.
+    """
     if pos.device.type == "cpu":
         return ref_idm_accel(pos, vel, lane, active, v0, T, a_max, b_comf, s0,
                              veh_len)
     if pos.device.type != "cuda":
         raise ValueError(f"idm_accel_kernel runs on cpu or cuda, not {pos.device}")
+    return _idm_launch("idm_accel_kernel", "idm_accel_launch", pos, vel, lane,
+                       active, v0, T, a_max, b_comf, s0, veh_len)
+
+
+def _idm_accel_wide(pos, vel, lane, active, v0, T, a_max, b_comf, s0, *,
+                    veh_len: float = 4.5):
+    """The all-pairs form of :func:`idm_accel_kernel` at any N, on CUDA
+    tensors only: the oracle that the sort form equals bit for bit, and the
+    time it is held against. No path calls it; its launches count under
+    ``launches["idm_accel_wide"]``."""
+    if pos.device.type != "cuda":
+        raise ValueError(f"_idm_accel_wide runs on cuda only, not {pos.device}")
+    return _idm_launch("idm_accel_wide", "idm_accel_wide_launch", pos, vel,
+                       lane, active, v0, T, a_max, b_comf, s0, veh_len)
+
+
+def _idm_launch(name, entry, pos, vel, lane, active, v0, T, a_max, b_comf,
+                s0, veh_len):
+    """Check the CUDA inputs, launch C entry ``entry`` of ``csrc/idm.cu``
+    and count it under ``launches[name]``."""
     b, n = pos.shape
     dev = pos.device
-    for name, t, dt in (
+    for arg, t, dt in (
         ("pos", pos, torch.float32), ("vel", vel, torch.float32),
         ("lane", lane, torch.int32), ("active", active, torch.bool),
         ("v0", v0, torch.float32), ("T", T, torch.float32),
         ("a_max", a_max, torch.float32), ("b_comf", b_comf, torch.float32),
         ("s0", s0, torch.float32),
     ):
-        _check(name, t, dt, (b, n), dev)
+        _check(arg, t, dt, (b, n), dev)
     acc = torch.empty((b, n), dtype=torch.float32, device=dev)
-    fn = symbol("idm", "idm_accel_launch", [_P] * 9 + [_I, _I, _F, _P, _P])
+    fn = symbol("idm", entry, [_P] * 9 + [_I, _I, _F, _P, _P])
     with torch.cuda.device(dev):
         err = fn(pos.data_ptr(), vel.data_ptr(), lane.data_ptr(),
                  active.data_ptr(), v0.data_ptr(), T.data_ptr(),
                  a_max.data_ptr(), b_comf.data_ptr(), s0.data_ptr(), b, n,
                  veh_len, acc.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
-    launched("idm_accel_kernel", err, launches)
+    launched(name, err, launches)
     return acc

@@ -73,22 +73,66 @@ def test_neighbor_kernel_matches_plain(cuda, b, n, q):
         assert g.dtype == w.dtype and torch.equal(g, w), name
 
 
+def idm_args(dev, pos, lane, active, seed):
+    """The nine IDM inputs on ``dev`` for a world, the rest drawn from
+    ``seed`` in the sweep's ranges."""
+    b, n = pos.shape
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, (b, n)).astype(np.float32)
+
+    return on(dev, pos, u(0.0, 35.0), lane, active, u(20.0, 35.0),
+              u(0.8, 1.8), u(1.0, 2.5), u(1.5, 3.0), u(1.0, 2.5))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n", [(256, 128), (48, 512), (3, 200)])
 def test_idm_accel_kernel_matches_plain(cuda, b, n):
     """rtol = atol = 1e-6: the epilogue's division, square root and sums
     may round in another order than PyTorch's element-wise kernels."""
-    pos, lane, active = rand_worlds(b + n, b, n)
-    rng = np.random.default_rng(b)
-
-    def u(lo, hi):
-        return rng.uniform(lo, hi, (b, n)).astype(np.float32)
-
-    args = on(cuda, pos, u(0.0, 35.0), lane, active, u(20.0, 35.0),
-              u(0.8, 1.8), u(1.0, 2.5), u(1.5, 3.0), u(1.0, 2.5))
+    args = idm_args(cuda, *rand_worlds(b + n, b, n), b)
     got = idm.idm_accel_kernel(*args, veh_len=4.5)
     want = ref.ref_idm_accel(*args, 4.5)
     torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def tie_world(seed, b, n):
+    """Positions on a grid of 16 values in 3 lanes: most vehicles share
+    their position with others of their lane."""
+    rng = np.random.default_rng(seed)
+    pos = (rng.integers(0, 16, (b, n)) * 7.5 - 30.0).astype(np.float32)
+    pos[(pos == 0.0) & (rng.uniform(size=(b, n)) < 0.5)] = -0.0  # and +0
+    lane = rng.integers(0, 3, (b, n)).astype(np.int32)
+    return pos, lane, rng.uniform(size=(b, n)) < 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,world", [
+    (3, 1, "rand"), (5, 31, "rand"), (256, 128, "rand"), (48, 512, "rand"),
+    (2, 2000, "rand"), (1, 8192, "rand"), (64, 128, "ties"), (4, 700, "ties"),
+    (1, 8, "collapse"), (2, 8193, "rand"),
+])
+def test_idm_sort_form_equals_all_pairs_bitwise(cuda, b, n, world):
+    """Up to 8192 slots ``idm_accel_kernel`` sorts and searches; its lead,
+    so its result, is the all-pairs form's, bit for bit (2000, 8192: 2 and
+    8 keys a thread); at 8193 the same entry launches the all-pairs form."""
+    if world == "rand":
+        pos, lane, active = rand_worlds(b + n, b, n)
+    elif world == "ties":
+        pos, lane, active = tie_world(n, b, n)
+    else:
+        pos, lane, active = collapse_world()
+    args = idm_args(cuda, pos, lane, active, n)
+    before = dict(idm.launches)
+    got = idm.idm_accel_kernel(*args, veh_len=4.5)
+    wide = idm._idm_accel_wide(*args, veh_len=4.5)
+    want = ref.ref_idm_accel(*args, 4.5)
+    torch.cuda.synchronize()
+    assert idm.launches["idm_accel_kernel"] == before["idm_accel_kernel"] + 1
+    assert idm.launches["idm_accel_wide"] == before["idm_accel_wide"] + 1
+    assert torch.equal(got, wide), int((got != wide).sum())
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
@@ -173,6 +217,12 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         idm.neighbor_kernel(pos[:, ::2], lane[:, ::2], active[:, ::2],
                             lane[:, None, ::2])
+    args = idm_args(cuda, *rand_worlds(0, 2, 16), 0)
+    for wrapper in (idm.idm_accel_kernel, idm._idm_accel_wide):
+        with pytest.raises(TypeError):
+            wrapper(args[0].double(), *args[1:])
+        with pytest.raises(ValueError):
+            wrapper(*args[:2], args[2][:, :8], *args[3:])
 
 
 @pytest.mark.cuda
