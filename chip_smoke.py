@@ -10,7 +10,8 @@ Phases, in order; any failure raises and exits non-zero:
 1. card   — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build  — compile ``src/repro_torch/kernels/csrc/{idm,flash_attention,
    rglru,wkv6}.cu`` with nvcc, one ``build.load`` per source, all four
-   started together;
+   started together; phase 3 starts once ``idm.cu`` is built, and the
+   other three are joined after it;
 3. kernels — hold each sweep kernel against its plain PyTorch version
    on the card (``neighbor_kernel`` bit-exact on all six outputs;
    ``idm_accel_kernel`` within rtol = atol = 1e-6, because its IDM epilogue
@@ -27,11 +28,11 @@ Phases, in order; any failure raises and exits non-zero:
    B 256/1024 x N 128, 48 x 512, 65536 x 16, 2 x 8192 and 2 x 8193, and
    each line up to 8192 slots times both forms; both bounds count the
    comparisons a sort and binary searches need, not all-pairs tests;
-4. sweep  — the port's launcher in-process at full size (1024 instances,
+4. sweep  — the port's launcher in-process at full width (1024 instances,
    128 slots, the four-scenario mix, grouped dispatch, ``--neighbor-impl
-   cuda``, ``--devices 1``): completion must reach 1.0 and the neighbor
-   kernel's launch count must equal 2 x chunk_steps x the batched chunk
-   calls made;
+   cuda``, ``--devices 1``) for 400 steps in chunks of 200 (the full 1200
+   steps run in 7b): completion must reach 1.0 and the neighbor kernel's
+   launch count must equal 2 x chunk_steps x the batched chunk calls made;
 5. reference — a small sweep on the card (``cuda`` impl) against the same
    sweep on the CPU (``sort`` impl): integer counters equal, floats close;
 6. parity — 64 instances, 400 steps: the ``cuda`` and ``sort`` impls on the
@@ -43,9 +44,10 @@ Phases, in order; any failure raises and exits non-zero:
    the batched calls made; then phase 4's sweep at full width through 2
    blocks on one card for one chunk of 100 steps, its instance-steps/s and
    vehicle-steps/s beside phase 4's;
-7. profile — host ms per step of one sweep group, and under
-   ``torch.profiler`` the device's busy time, its share of the profiled
-   wall time and of the unprofiled step, and the heaviest kernels;
+7. profile — host ms per step of one sweep group (5 steps), and under
+   ``torch.profiler`` (device activity only) the device's busy time, its
+   share of the profiled wall time and of the unprofiled step, and the
+   heaviest kernels;
 7a. record — the recording sweep in-process on the card (64 instances, 128
    slots, 400 steps in chunks of 100, the four-scenario mix, grouped,
    ``cuda`` neighbors, a row every 10 steps, 8 recorded slots): a
@@ -70,13 +72,35 @@ Phases, in order; any failure raises and exits non-zero:
    controller must exit 0 with eligible completion 1.0, ``verify_shards``
    must repair nothing, the dataset must hold the 1023 other instances
    once each, and the final worker's neighbor launches must equal 2 x
-   chunk_steps x its batched chunk calls; prints the wall time beside
-   phase 4's, chunks, restarts, faults by kind, the host seconds of each
+   chunk_steps x its batched chunk calls; prints the wall time and the
+   instance-steps/s beside phase 4's, chunks, restarts, faults by kind, the host seconds of each
    chunk's checkpoint save, shard drain and whole commit on the I/O
    thread and the loop's wait for it, and the dataset's bytes;
 7c. tokens — 7b's dataset as LM inputs: its token corpus
    (``shard_token_corpus``) and 4 ``sim_token_batches`` of 8 x 1024 on the
    card for gemma2-2b; prints their shape and vocabulary;
+7d. train — training through the plain attention and recurrence paths,
+   every hand kernel's launch count 0 in each part: (a) qwen1.5-0.5b,
+   gemma2-2b, recurrentgemma-2b and rwkv6-3b reduced, on the card and on
+   the CPU from the same seeded weights and batch: the loss's gradient,
+   leaf by leaf, in f32 within rtol 1e-4 plus 3e-5 of the leaf's largest
+   entry and in bf16 within rtol 2^-6 plus 2^-5 of it and an L2 error of
+   2^-5, every parameter's gradient nonzero on the card (through the
+   logits product's own backward); then 2 f32 steps (4 x 64 in 2
+   microbatches, weight decay 0.1) from the same weights and batches: the
+   loss within rtol 1e-5, the gradient norm within 1e-4, the first moments
+   after step 1 as the f32 gradient; (b) the
+   reduced qwen (bf16) on the card: two straight 4-step runs, then 2
+   steps, a checkpoint, a new ``Trainer`` restoring it and 2 more, bit for
+   bit equal to the straight runs if those agree bit for bit, else within
+   their printed difference; (c) qwen1.5-0.5b at full width (bf16, f32
+   moments) through ``python -m repro_torch.launch.train``'s ``main`` on
+   7b's dataset: 4 steps of 8 x 4096 in 4 microbatches, ``--remat full``,
+   a checkpoint; every loss finite, step 4's below step 1's; prints per
+   step the seconds, tokens/s, loss and model FLOPs share (6·N·tokens/s
+   over the bf16 dense peak), the peak memory, the checkpoint's bytes and
+   save seconds, and one more step under ``torch.profiler`` (device busy
+   share, heaviest kernels), each with the card's name and power limit;
 8. attention — ``flash_attention`` against ``ref_attention`` at gemma2-2b's
    prefill shapes (B 1, H 8, K 4, D 256, S 37/512/6000, global and local
    window 4096, softcap 50), once more at S 512 with q scaled by 20 so that
@@ -90,8 +114,9 @@ Phases, in order; any failure raises and exits non-zero:
    the library call timed:
    ``scaled_dot_product_attention`` for the causal shapes without softcap,
    compiled ``flex_attention`` (softcap ``score_mod``, causal/window block
-   mask, GQA) for the other shapes in bf16 (each held against
-   ``ref_attention`` first; the port never calls either); then 64 seeded
+   mask, GQA) for the other shapes in bf16 at S 6000 only (two compiles;
+   each held against ``ref_attention`` first; the port never calls
+   either); then 64 seeded
    q x 20 draws at gemma2-2b's global S 512 shape in bf16: none may cross
    the bf16 tolerance; prints the largest ratio of error to tolerance, and
    the same for a plain attention that rounds p to bf16 before
@@ -105,10 +130,12 @@ Phases, in order; any failure raises and exits non-zero:
    S 37/512/4096/6000 with mild decays and S 6000 with strong ones that
    include exact zeros and ones; 5e-2 in bf16, 1e-4 in f32, the state 1e-3),
    x or r/k/v in bf16 and f32, the tolerances of ``tests/test_kernels.py``;
-   two chunks through ``h0``/``s0`` equal one; kernel, plain version (one
-   trial at S > 1024: a Python loop) and bound timed, each wkv6 line with its share of the bound and the main
-   shape's with its bar of 1.0 ms and target of 0.30 ms (no single PyTorch
-   call computes either recurrence);
+   two chunks through ``h0``/``s0`` equal one; kernel and bound timed, and
+   the plain version (a Python loop over S) at S ≤ 1024 and, in one
+   trial, on each main shape's line (B 1, S 6000, mild decays, f32); each
+   wkv6 line with its share of the bound and the main shape's with its bar
+   of 1.0 ms and target of 0.30 ms (no single PyTorch call computes either
+   recurrence);
 
 then, for each served model in turn (gemma2-2b, recurrentgemma-2b,
 rwkv6-3b), freeing each before the next:
@@ -127,9 +154,9 @@ rwkv6-3b), freeing each before the next:
    atol = 1e-3; in bf16 the kernels' distance to the f32 logits at most
    1.25x the plain path's (``serve_vs_plain`` says why the bf16 paths are
    not held to 3e-2 of each other);
-12. serve profile — one 6000-token prefill and 8 decode steps at 4 slots
-   under ``torch.profiler``: device busy time and share, each kernel's
-   time and share, the heaviest kernels;
+12. serve profile — one 6000-token prefill and 2 decode steps at 4 slots
+   under ``torch.profiler`` (device activity only): device busy time and
+   share, each kernel's time and share, the heaviest kernels;
 13. engine = greedy — the model at full width in f32: the engine's tokens
    (6 requests through 4 slots) equal per-request greedy prefill + decode.
 
@@ -156,7 +183,10 @@ sys.path.insert(0, str(ROOT / "src"))
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 N_LANES = 4                       # 3 main lanes + ramp, as the sweep
-SWEEP = dict(instances=1024, slots=128, steps=1200, chunk_steps=400)
+# phase 4: the sweep at full width for 400 steps in two chunks of 200 (7b's
+# chunks; every chunk steps all instances, so its rate is the sweep's); the
+# sweep's full depth of 1200 steps runs recorded, faulted and gated in 7b
+SWEEP = dict(instances=1024, slots=128, steps=400, chunk_steps=200)
 # phase 6: the cuda = sort parity sweep, which phase 6a replays through
 # blocks and phase 7a records
 PARITY = dict(instances=64, steps=400)
@@ -173,6 +203,25 @@ PIPELINE = dict(instances=1024, slots=128, steps=1200, chunk_steps=200,
                 chaos_kills=2, timeout_s=900)
 # phase 7c: LM batches of phase 7b's dataset
 TOKENS = dict(batch=8, seq=1024, batches=4)
+# phase 7d: training. (a) the four archs reduced, 2 steps on the card and on
+# the CPU from the same weights and batches (f32), and a bf16 gradient on
+# the card; (b) the reduced qwen resumed from a checkpoint; (c) qwen1.5-0.5b
+# at full width on phase 7b's dataset through the launcher (sequences of
+# 4096, the reference's train_4k shape, in 4 microbatches of 2)
+TRAIN_ARCHS = ("qwen1.5-0.5b", "gemma2-2b", "recurrentgemma-2b", "rwkv6-3b")
+TRAIN_SMALL = dict(steps=2, batch=4, seq=64, microbatches=2, lr=1e-3,
+                   weight_decay=0.1)
+# card against CPU gradients, leaf by leaf (``grads_close``): f32 at the
+# parity tests' rtol 1e-4 with an atol of a fraction of each leaf's largest
+# entry (rwkv6-3b's, through the plain WKV6 loop over S, differ most;
+# phase 7d prints each arch's largest difference); bf16 as
+# tests/test_torch_train_parity.py holds bf16 against the reference (rtol
+# 2^-6, atol 2^-5 of the largest entry, L2 error 2^-5)
+TRAIN_GRAD_TOL = {"float32": dict(rtol=1e-4, atol_frac=3e-5),
+                  "bfloat16": dict(rtol=2.0**-6, atol_frac=2.0**-5,
+                                   l2=2.0**-5)}
+TRAIN_FULL = dict(arch="qwen1.5-0.5b", steps=4, batch=8, seq=4096,
+                  microbatches=4, remat="full")
 # phase 6a: phase 4's sweep at full width timed through 2 blocks on one card
 # for one chunk of 100 steps (every chunk of phase 4 steps all instances, so
 # one chunk's rate is the sweep's; the short chunk keeps the script inside
@@ -212,7 +261,8 @@ WKV6_DRAWS = ((37, "mild"), (512, "mild"), (4096, "mild"), (6000, "mild"),
               (6000, "strong"))
 # trials of the plain recurrences (Python loops over S, 10^3-10^4 times the
 # kernels' time) at S > 1024: each trial waits out a sleep as long as the
-# loop's enqueue, so one trial there keeps phase 9 inside the time limit
+# loop's enqueue, so one trial there, on the main shape's line only (the
+# others at S > 1024 are not timed), keeps phase 9 inside the time limit
 PLAIN_LOOP_TRIALS = 1
 # the main shape's f32 time that the chunked kernel must and should reach
 WKV6_BAR_MS, WKV6_TARGET_MS = 1.0, 0.30
@@ -425,31 +475,37 @@ def kernel_phase(torch, idm, ref):
 
 def device_events(prof) -> list[tuple[str, float, int]]:
     """(name, device µs, count) of a profile's device events (kernels,
-    copies, memsets), heaviest first; the CPU ops that launched them carry
-    the same time again as their "self device" time and are left out."""
+    copies, memsets), heaviest first, summed by name straight from the
+    profiler's raw events: ``key_averages`` first builds a Python event
+    tree of every host and device event, which for a train step's ~67,000
+    kernels takes longer than the step."""
+    from torch.autograd import DeviceType
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    events = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-              if dev_us(e) > 0 and
-              "cuda" in str(getattr(e, "device_type", "")).lower()]
-    return sorted(events, key=lambda e: e[1], reverse=True)
+    totals: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
+            continue
+        acc = totals.setdefault(e.name(), [0.0, 0])
+        acc[0] += e.duration_ns() / 1e3
+        acc[1] += 1
+    return sorted(((k, us, n) for k, (us, n) in totals.items()),
+                  key=lambda e: e[1], reverse=True)
 
 
 def profile_phase(torch) -> dict:
     """Where a group call's time goes: host time per step without the
     profiler, then a ``torch.profiler`` window over the same steps for the
     device's busy share and its heaviest kernels (one highway_merge group
-    of the sweep: B = instances / 4, N = slots, after 100 warm-up steps)."""
+    of the sweep: B = instances / 4, N = slots, after 100 warm-up steps).
+    The profiler records device activity only: the host ops of the
+    window's ~7,000 kernels would take longer to digest than to run."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.scenario import SimConfig
     from repro_torch.core.simulator import rollout_chunk
     from repro_torch.core.sweep import SweepConfig, SweepRunner
 
-    steps = 20
+    steps = 5
     cfg = SweepConfig(n_instances=SWEEP["instances"] // 4,
                       steps_per_instance=10**6, chunk_steps=steps,
                       sim=SimConfig(n_slots=SWEEP["slots"],
@@ -462,8 +518,7 @@ def profile_phase(torch) -> dict:
     sim, m = rollout_chunk(sim, m, sp, h, cfg.sim, steps)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rollout_chunk(sim, m, sp, h, cfg.sim, steps)
         torch.cuda.synchronize()
@@ -476,7 +531,7 @@ def profile_phase(torch) -> dict:
     # two shares of one busy time: over the profiled window's own wall
     # time (the profiler slows the host, so this understates the share),
     # and over the unprofiled step measured just before (two windows of
-    # the same 20 steps; the device's work per step is the same in both)
+    # the same 5 steps; the device's work per step is the same in both)
     out = dict(host_ms_per_step=host_ms,
                profiled_wall_ms_per_step=wall_us / steps / 1e3,
                device_ms_per_step=device_ms,
@@ -803,7 +858,7 @@ def blocks_phase(torch, idm, plain, sweep: dict) -> dict:
     return out
 
 
-def pipeline_phase(torch, sweep_wall: float) -> dict:
+def pipeline_phase(torch, sweep: dict) -> dict:
     """Phase 7b, the gate: the port's controller over the full-size
     recording sweep with injected crashes, hangs, stragglers, one poison
     instance and two SIGKILLs. The controller must exit 0 with eligible
@@ -918,8 +973,10 @@ def pipeline_phase(torch, sweep_wall: float) -> dict:
         f"{p['chunk_steps']}, {p['workers']} workers, recording every "
         f"{p['record_every']} steps, pipelined I/O: wall {wall:.3f} s "
         f"(commits {sum(t[4] for t in timing):.3f} s on the I/O thread, the "
-        f"loop waited {sum(t[5] for t in timing):.3f} s; phase 4's sweep "
-        f"{sweep_wall:.3f} s); {committed} chunks committed over {spawns} "
+        f"loop waited {sum(t[5] for t in timing):.3f} s), "
+        f"{p['instances'] * p['steps'] / wall:.1f} instance-steps/s (phase "
+        f"4's sweep {sweep['instance_steps_per_s']:.1f}); {committed} chunks "
+        f"committed over {spawns} "
         f"worker attempts ({kills} SIGKILLs, {spawns - 1} restarts); faults "
         f"{faults}; eligible completion 1.0, completion "
         f"{info['completion_rate']:.6f}, quarantined {info['quarantined']}; "
@@ -931,7 +988,8 @@ def pipeline_phase(torch, sweep_wall: float) -> dict:
         log(f"pipeline:   chunk {c}: host seconds: chunk {chunk_s:.4f}, "
             f"checkpoint save {ckpt_s:.4f}, shard drain {drain_s:.4f}, "
             f"commit {commit_s:.4f}, waited {wait_s:.4f}")
-    return dict(dataset=ds, wall_s=wall, sweep_wall_s=sweep_wall,
+    return dict(dataset=ds, wall_s=wall,
+                instance_steps_per_s=p["instances"] * p["steps"] / wall,
                 chunks=committed,
                 spawns=spawns, kills=kills, faults=faults,
                 completion_rate=info["completion_rate"],
@@ -990,6 +1048,349 @@ def tokens_phase(torch, ds) -> dict:
                 batch_s=batch_s)
 
 
+def small_train_run(torch, cfg, params, batches, dev: str):
+    """``TRAIN_SMALL``'s steps of ``make_train_step`` on ``dev`` from
+    ``params``: (host copies of the first moments m after the first step,
+    each step's metrics)."""
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import adamw_init, make_train_step
+
+    t = TRAIN_SMALL
+    tc = TrainConfig(learning_rate=t["lr"], warmup_steps=1, total_steps=10,
+                     weight_decay=t["weight_decay"],
+                     microbatches=t["microbatches"])
+    step = make_train_step(build_model(cfg, dev), tc)
+    state = adamw_init(dict(params.named_parameters()))
+    metrics, m1 = [], None
+    for b in batches:
+        params, state, m = step(params, state,
+                                {k: v.to(dev) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+        if m1 is None:
+            m1 = {k: v.cpu().clone() for k, v in state.m.items()}
+    return m1, metrics
+
+
+def loss_grads(torch, model, params, batch: dict) -> dict:
+    """Host copies of the gradient of the loss at ``batch``, by parameter
+    name, through the training path's plain attention and recurrences."""
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.models.attention import attention_impl
+    from repro_torch.models.recurrent import recurrence_impl
+    from repro_torch.train.step import make_loss_fn
+
+    params.requires_grad_(True)
+    names = [k for k, _ in params.named_parameters()]
+    dev = {k: v.to(model.device) for k, v in batch.items()}
+    with attention_impl("xla"), recurrence_impl("plain"):
+        loss, _ = make_loss_fn(model, TrainConfig())(params, dev)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+    return {k: g.detach().float().cpu() for k, g in zip(names, grads)}
+
+
+def grads_close(got: dict, want: dict, what: str, rtol: float,
+                atol_frac: float, l2: float | None = None) -> float:
+    """Hold two gradients (or first moments) leaf by leaf: every element
+    within ``rtol`` of ``want`` plus ``atol_frac`` of the leaf's largest
+    entry, and where ``l2`` is given each leaf's relative L2 error within
+    it (a NaN or an infinity fails). Returns the largest difference over
+    its leaf's largest entry."""
+    worst = 0.0
+    for k, w in want.items():
+        g, scale = got[k], float(w.abs().max())
+        diff = (g - w).abs()
+        ok = bool((diff <= rtol * w.abs() + atol_frac * scale).all())
+        if l2 is not None:
+            ok = ok and float((g - w).norm()) <= l2 * float(w.norm())
+        if not ok:
+            raise AssertionError(
+                f"train: {what}: {k}: largest difference "
+                f"{float(diff.max()):.3g}, the leaf's largest entry "
+                f"{scale:.3g} (rtol {rtol}, atol {atol_frac} of it"
+                + (f", L2 {l2}" if l2 is not None else "") + ")")
+        worst = max(worst, float(diff.max()) / scale if scale else 0.0)
+    return worst
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind, by its name: the f32 and the 16-bit GEMMs,
+    element-wise kernels, reductions, the rest."""
+    low = name.lower()
+    if "gemm" in low or "nvjet" in low or "cutlass" in low:
+        return "f32 GEMM" if "f32f32_f32f32" in low else "bf16 GEMM"
+    if "elementwise" in low:
+        return "element-wise"
+    if "reduce" in low:
+        return "reductions"
+    return "other"
+
+
+def train_phase(torch, ds, counters) -> dict:
+    """Phase 7d: training through the plain attention and recurrence paths
+    (the hand kernels have no backward; every kernel's launch count must
+    stay 0, counted from just before each part to just after).
+
+    (a) each of ``TRAIN_ARCHS`` reduced, on the card and on the CPU from
+    the same seeded weights and batches: the loss's gradient in f32 and in
+    bf16, held leaf by leaf as ``TRAIN_GRAD_TOL`` says, every parameter's
+    gradient nonzero on the card (the logits' bf16 product has its own
+    backward there); then ``TRAIN_SMALL``'s steps in f32: the loss within
+    rtol 1e-5, the gradient norm within 1e-4 and the first moments after
+    step 1 (0.1 of the clipped, microbatch-accumulated gradient) as the
+    f32 gradient. The parameters are not compared: AdamW's first step
+    moves an element by about ±lr wherever the two sides' gradients differ
+    near eps, so they would hold nothing the gradients do not.
+    (b) the reduced qwen (bf16) on the card for 4 steps, twice, then 2
+    steps, a checkpoint, a new Trainer that restores it and 2 more: if the
+    two straight runs agree bit for bit the resumed one must too; else it
+    prints the leaf that differs most and holds the resumed run to that
+    difference. (c) ``TRAIN_FULL`` through ``launch.train.main`` on phase
+    7b's dataset: every loss finite and the last below the first; per step
+    the seconds, tokens/s, loss and model FLOPs share, then the peak
+    memory, the checkpoint's bytes and save seconds, and one more step
+    under ``torch.profiler``."""
+    import copy
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config.base import TrainConfig, get_arch
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.trainer import Trainer
+
+    smi = nvidia_smi()
+    work = WORK / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {n: 0 for c in counters for n in c.launches}
+
+    def counted(what: str) -> None:
+        torch.cuda.synchronize()
+        now = {n: v for c in counters for n, v in c.launches.items()}
+        for n, v in now.items():
+            launches[n] += v
+        if any(now.values()):
+            raise AssertionError(f"train: {what} launched hand kernels {now}")
+        for c in counters:
+            c.reset_launches()
+
+    for c in counters:
+        c.reset_launches()
+    # (a) card against CPU: the loss's gradient in f32 and in bf16, then
+    # two train steps in f32
+    t = TRAIN_SMALL
+    rng = np.random.default_rng(7)
+    small = {}
+    for arch in TRAIN_ARCHS:
+        batches = []
+        for _ in range(t["steps"]):
+            toks = torch.from_numpy(rng.integers(
+                0, get_arch(arch).reduced().vocab_size,
+                (t["batch"], t["seq"] + 1)))
+            batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        worst, f32 = {}, None
+        for dtype, tol in TRAIN_GRAD_TOL.items():
+            cfg = dataclasses.replace(get_arch(arch).reduced(), dtype=dtype)
+            gen = torch.Generator()
+            gen.manual_seed(0)
+            cpu_params = build_model(cfg, "cpu").init(gen)
+            card_params = copy.deepcopy(cpu_params).to("cuda")
+            card_g = loss_grads(torch, build_model(cfg, "cuda"), card_params,
+                                batches[0])
+            counted(f"{arch} {dtype} gradient")
+            cpu_g = loss_grads(torch, build_model(cfg, "cpu"), cpu_params,
+                               batches[0])
+            # the card's bf16 logits product has its own backward
+            # (models/common.py): every parameter must get a gradient
+            dead = [k for k, g in card_g.items() if not bool(g.any())]
+            if dead:
+                raise AssertionError(f"train: {arch} {dtype} on the card: no "
+                                     f"nonzero gradient reaches {dead}")
+            worst[dtype] = grads_close(card_g, cpu_g,
+                                       f"{arch} {dtype} gradient", **tol)
+            if dtype == "float32":
+                f32 = (cfg, cpu_params, card_params)
+        cfg, cpu_params, card_params = f32
+        t0 = time.perf_counter()
+        card_m1, card_m = small_train_run(torch, cfg, card_params, batches,
+                                          "cuda")
+        counted(f"{arch} f32 steps")
+        card_s = time.perf_counter() - t0
+        m1, cpu_m = small_train_run(torch, cfg, cpu_params, batches, "cpu")
+        for i, (x, y) in enumerate(zip(card_m, cpu_m)):
+            np.testing.assert_allclose(x["loss"], y["loss"], rtol=1e-5,
+                                       err_msg=f"{arch} step {i + 1} loss")
+            np.testing.assert_allclose(x["grad_norm"], y["grad_norm"],
+                                       rtol=1e-4,
+                                       err_msg=f"{arch} step {i + 1} gnorm")
+        worst["m1"] = grads_close(card_m1, m1, f"{arch} m after step 1",
+                                  **TRAIN_GRAD_TOL["float32"])
+        small[arch] = dict(loss=[m["loss"] for m in card_m],
+                           cpu_loss=[m["loss"] for m in cpu_m],
+                           grad_norm=[m["grad_norm"] for m in card_m],
+                           worst_over_leaf_max=worst, params=len(card_g),
+                           card_s=card_s)
+        log(f"train: {arch} reduced, card vs CPU: the loss's gradient, "
+            f"every leaf, f32 within {worst['float32']:.3g} and bf16 within "
+            f"{worst['bfloat16']:.3g} of the leaf's largest entry; "
+            f"{t['steps']} f32 steps of {t['batch']} x {t['seq']} in "
+            f"{t['microbatches']} microbatches: loss "
+            f"{card_m[-1]['loss']:.7f} vs {cpu_m[-1]['loss']:.7f}, grad norm "
+            f"{card_m[-1]['grad_norm']:.6f} vs {cpu_m[-1]['grad_norm']:.6f}, "
+            f"m after step 1 within {worst['m1']:.3g}; all {len(card_g)} "
+            f"parameters get a nonzero gradient in both types; hand-kernel "
+            f"launches 0 (card steps {card_s:.2f} s) | {smi}")
+        del f32, card_params, cpu_params, card_g, cpu_g
+    # (b) resume on the card
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    model = build_model(cfg, "cuda")
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4)
+
+    def run(ckpt, start: int, steps: int):
+        data = synthetic_batches(cfg, t["batch"], t["seq"], seed=1,
+                                 start_step=start, device="cuda")
+        tr = Trainer(model, tc, data, ckpt_dir=ckpt, log_every=1,
+                     log_fn=lambda s: None)
+        p, st = tr.run(steps=steps)
+        leaves = {f"params.{k}": v.detach() for k, v in p.named_parameters()}
+        leaves.update({f"m.{k}": v for k, v in st.m.items()})
+        leaves.update({f"v.{k}": v for k, v in st.v.items()})
+        return tr, leaves
+
+    _, a = run(None, 0, 4)
+    _, b = run(None, 0, 4)
+    run(str(work / "resume"), 0, 2)
+    tr, r = run(str(work / "resume"), 2, 4)
+    counted("the resume runs")
+    if [h["step"] for h in tr.history] != [3, 4]:
+        raise AssertionError(f"train: resumed at {tr.history}")
+    spread = {k: float((a[k].float() - b[k].float()).abs().max()) for k in a}
+    worst_leaf = max(spread, key=spread.get)
+    limit = spread[worst_leaf]
+    off = {k: float((r[k].float() - a[k].float()).abs().max()) for k in a}
+    if limit == 0.0:
+        bad = [k for k in a if not torch.equal(a[k], r[k])]
+        if bad:
+            raise AssertionError(f"train: two straight runs agree bit for bit "
+                                 f"but the resumed run differs in {bad}")
+        log("train: resume: two straight 4-step runs of the reduced qwen on "
+            "the card agree bit for bit, and 2 steps + checkpoint + restore "
+            "+ 2 steps equals them bit for bit (parameters, m, v)")
+    else:
+        if max(off.values()) > limit:
+            raise AssertionError(f"train: resumed run off by "
+                                 f"{max(off.values())}, straight runs by "
+                                 f"{limit} ({worst_leaf})")
+        log(f"train: resume: two straight runs differ, most in {worst_leaf} "
+            f"(largest difference {limit:.3g}); the resumed run within it "
+            f"({max(off.values()):.3g})")
+    resume = dict(bit_equal=limit == 0.0, straight_spread=limit,
+                  spread_leaf=worst_leaf, resumed_off=max(off.values()))
+    del model, a, b, r, tr
+
+    # (c) full width on phase 7b's dataset
+    f = TRAIN_FULL
+    argv = ["--arch", f["arch"], "--full-size", "--steps", str(f["steps"]),
+            "--batch", str(f["batch"]), "--seq", str(f["seq"]),
+            "--microbatches", str(f["microbatches"]), "--remat", f["remat"],
+            "--data", "sim", "--shard-dir", str(ds), "--ckpt-dir",
+            str(work / "full"), "--log-every", "1", "--device", "cuda"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_launcher.main(argv)
+    counted("the full-width run")
+    peak = torch.cuda.max_memory_allocated()
+    tr, params, opt = out["trainer"], out["params"], out["opt_state"]
+    hist = tr.history
+    losses = [h["loss"] for h in hist]
+    if len(hist) != f["steps"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"train: full width: history {hist}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: full width: loss {losses} does not fall")
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = f["batch"] * f["seq"]
+    elapsed = [h["step"] / h["steps_per_s"] for h in hist]
+    step_s = [elapsed[0]] + [y - x for x, y in zip(elapsed, elapsed[1:])]
+    peak_flops = TENSOR_OPS_PER_S["bfloat16"]
+    steps = []
+    for h, sec in zip(hist, step_s):
+        share = 6 * n_params * tokens / sec / peak_flops
+        steps.append(dict(step=h["step"], seconds=sec, tokens_per_s=tokens / sec,
+                          loss=h["loss"], grad_norm=h["grad_norm"],
+                          flops_share=share))
+        log(f"train: {f['arch']} full width, step {h['step']}: {sec:.3f} s, "
+            f"{tokens / sec:.1f} tokens/s, loss {h['loss']:.4f}, grad norm "
+            f"{h['grad_norm']:.3f}, model FLOPs share {100 * share:.3f}% | "
+            f"{smi}")
+    steady = step_s[1:]
+    mean_s = sum(steady) / len(steady)
+    ck = work / "full" / f"step_{f['steps']:09d}"
+    ck_bytes = sum(p.stat().st_size for p in ck.iterdir())
+    save = tr.saves[-1]
+    # one more step under the profiler, device activity only (the host
+    # ops of a step's ~67,000 kernels would take longer to digest than
+    # the step)
+    batch = next(tr.data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        params, opt, _ = tr.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    events = device_events(prof)
+    profile_s = time.perf_counter() - t0
+    counted("the profiled step")
+    busy_ms = sum(e[1] for e in events) / 1e3
+    kinds = {}
+    for name, us, _ in events:
+        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + us / 1e3
+    full = dict(arch=f["arch"], params=n_params, batch=f["batch"],
+                seq=f["seq"], microbatches=f["microbatches"],
+                remat=f["remat"], steps=steps, steady_step_s=mean_s,
+                steady_tokens_per_s=tokens / mean_s,
+                steady_flops_share=6 * n_params * tokens / mean_s / peak_flops,
+                peak_memory_bytes=peak, checkpoint_bytes=ck_bytes,
+                checkpoint_copy_s=save["copy_s"],
+                checkpoint_write_wait_s=save["wait_s"],
+                profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / wall_ms if busy_ms else None,
+                device_kernels=sum(e[2] for e in events),
+                device_ms_by_kind=kinds, profile_s=profile_s,
+                top=[(k[:100], us / 1e3) for k, us, _ in events[:8]])
+    log(f"train: {f['arch']} full width ({n_params:,} parameters, bf16, f32 "
+        f"moments), {f['batch']} x {f['seq']} a step in "
+        f"{f['microbatches']} microbatches, remat {f['remat']}, phase 7b's "
+        f"dataset: loss {losses[0]:.4f} -> {losses[-1]:.4f}; steps 2-"
+        f"{f['steps']} {mean_s:.3f} s a step, {tokens / mean_s:.1f} "
+        f"tokens/s, model FLOPs share {100 * full['steady_flops_share']:.3f}% "
+        f"(6·N·tokens/s over {peak_flops / 1e12:.0f} TFLOP/s, the H100 SXM's "
+        f"dense bf16 peak from NVIDIA's data sheet); peak memory "
+        f"{peak / 2**30:.2f} GiB; checkpoint {ck_bytes:,} bytes, host copy "
+        f"{save['copy_s']:.3f} s, write waited {save['wait_s']:.3f} s; "
+        f"hand-kernel launches 0 | {smi}")
+    if busy_ms:
+        log(f"train profile: one step: wall {wall_ms:.1f} ms under the "
+            f"profiler, device busy {busy_ms:.1f} ms "
+            f"({100 * full['device_busy_share']:.2f}%), "
+            f"{full['device_kernels']} device kernels; by kind: " + ", ".join(
+                f"{k} {v:.1f} ms ({100 * v / busy_ms:.1f}%)"
+                for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+            + f" (the profile took {profile_s:.1f} s) | {smi}")
+        for name, ms in full["top"]:
+            log(f"train profile:   {ms:.3f} ms  {name} | {smi}")
+    else:
+        log("train profile: the profiler recorded no device time: device "
+            "busy share not measured")
+    del out, params, opt, tr, prof
+    torch.cuda.empty_cache()
+    return dict(launches=launches, small=small, resume=resume, full=full)
+
+
 def live_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     """(query, key) pairs that attention with these masks scores: query i
     at position i + sk - sq sees keys (pos - window, pos] (causal) or
@@ -1019,6 +1420,9 @@ FLASH_SHAPES = [
 ]
 
 _FLEX: dict = {}  # the compiled flex_attention and its mods, made once
+# the one length at which flex_attention is compiled and timed: a compile
+# per length and variant takes ~10-40 s of the script's time limit
+FLEX_S = 6000
 
 
 def flex_call(torch, q, k, v, window: int, cap: float):
@@ -1030,10 +1434,9 @@ def flex_call(torch, q, k, v, window: int, cap: float):
 
     The cap and the window are 0-d tensors that the mods capture, so the
     compiled graph does not depend on their values: it is compiled once
-    with a softcap and once without, and once more when the sequence length
-    first changes (after that the length is dynamic). Called in bf16 only:
-    its Triton compile for f32 at D 256 takes most of the script's time
-    limit on an H100.
+    with a softcap and once without, called at one length (``FLEX_S``).
+    Called in bf16 only: its Triton compile for f32 at D 256 takes most of
+    the script's time limit on an H100.
     """
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -1102,8 +1505,10 @@ def flash_phase(torch, fa, ref) -> list[dict]:
                 lambda: ref.ref_attention(q, k, v, True, window, cap), 1,
                 trials)
             if dtype == "bfloat16" and (cap > 0.0 or window > 0):
+                # compiled once with a softcap and once without, at S 6000
                 library = "flex_attention"
-                lib = flex_call(torch, q, k, v, window, cap)
+                lib = flex_call(torch, q, k, v, window, cap) \
+                    if s == FLEX_S else None
             elif cap == 0.0:
                 library = "sdpa"
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1137,8 +1542,9 @@ def flash_phase(torch, fa, ref) -> list[dict]:
                                 bound_by=bound_by, tflops=tflops,
                                 bound_share=bound_ms / ms, library=library,
                                 library_ms=library_ms))
-            lib_txt = (f"{library} {library_ms:.5f} ms" if library else
-                       "flex_attention not timed in f32")
+            lib_txt = (f"{library} {library_ms:.5f} ms" if lib is not None
+                       else f"flex_attention not timed (only at S {FLEX_S} "
+                       "in bf16)")
             rate = (f", {tflops:.1f} TFLOP/s, {100 * bound_ms / ms:.2f}% of "
                     "its bound" if dtype == "bfloat16" else "")
             log(f"flash_attention {label} {dtype}: max |err| {err:.3g} "
@@ -1217,6 +1623,10 @@ def flash_margin(torch, fa, ref, draws: int = FLASH_MARGIN_DRAWS) -> dict:
                                                 max_ratio=worst_b))
 
 
+def plain_text(ms) -> str:
+    return "not timed" if ms is None else f"{ms:.5f} ms"
+
+
 def rglru_decays(torch, gen, shape, decay: str):
     """RG-LRU decays: ``mild`` U(0.7, 0.999) as the reference's tests draw
     them, or ``strong`` exp(-exp(U(-8, 5))) with one entry in 16 exactly 0
@@ -1259,12 +1669,13 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
                       float((hf - want_h).abs().max()))
             trials = 5 if s > 1024 else 21
             ms = device_ms(lambda: rg.rglru_linear_scan(a, x, h0), 10, trials)
-            plain_ms = device_ms(lambda: ref.ref_rglru(a, x, h0), 1,
-                                 PLAIN_LOOP_TRIALS if s > 1024 else 5)
+            main = (b, s, decay, dtype) == (1, 6000, "mild", "float32")
+            plain_ms = (device_ms(lambda: ref.ref_rglru(a, x, h0), 1,
+                                  PLAIN_LOOP_TRIALS if s > 1024 else 5)
+                        if main or s <= 1024 else None)
             bound_ms, bound_by = bound(
                 b * s * w * (4 + 2 * x.element_size()) + 2 * b * w * 4,
                 2 * b * s * w)
-            main = (b, s, decay, dtype) == (1, 6000, "mild", "float32")
             rg_results.append(dict(B=b, S=s, W=w, dtype=dtype, decay=decay,
                                    max_abs_err=err, ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1275,8 +1686,8 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
             log(f"rglru_linear_scan B={b} S={s} W={w} {dtype} {decay} decays:"
                 f" max |err| {err:.3g} (tol {RGLRU_TOL[dtype]}, h_final "
                 f"1e-4); kernel {ms:.5f} ms, {100 * bound_ms / ms:.2f}% of "
-                f"its bound, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms"
-                f" ({bound_by}){bar}")
+                f"its bound, plain {plain_text(plain_ms)}, bound "
+                f"{bound_ms:.5f} ms ({bound_by}){bar}")
     for decay in ("mild", "strong"):
         a = rglru_decays(torch, gen, (1, 512, 2560), decay)
         x = torch.randn((1, 512, 2560), generator=gen, device="cuda")
@@ -1322,8 +1733,10 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
             trials = 5 if s > 1024 else 21
             ms = device_ms(lambda: rw.wkv6(*args), 2 if s > 1024 else 10,
                            trials)
-            plain_ms = device_ms(lambda: ref.ref_wkv6(*args), 1,
-                                 PLAIN_LOOP_TRIALS if s > 1024 else 5)
+            main = (s, decay, dtype) == (6000, "mild", "float32")
+            plain_ms = (device_ms(lambda: ref.ref_wkv6(*args), 1,
+                                  PLAIN_LOOP_TRIALS if s > 1024 else 5)
+                        if main or s <= 1024 else None)
             elt = v.element_size()
             bytes_moved = (b * s * h * (kd * (2 * elt + 4) + 2 * vd * elt)
                            + h * kd * 4 + 2 * b * h * kd * vd * 4)
@@ -1335,13 +1748,12 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
                                    bound_by=bound_by,
                                    bound_share=bound_ms / ms))
             bar = (f"; the bar {WKV6_BAR_MS} ms, the target "
-                   f"{WKV6_TARGET_MS} ms" if (s, decay, dtype) ==
-                   (6000, "mild", "float32") else "")
+                   f"{WKV6_TARGET_MS} ms" if main else "")
             log(f"wkv6 B={b} S={s} H={h} K={kd} V={vd} {dtype} {decay} "
                 f"decays: max |err| {err:.3g} (tol {WKV6_TOL[dtype]}, state "
                 f"1e-3); kernel {ms:.5f} ms, {100 * bound_ms / ms:.2f}% of "
-                f"its bound, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} "
-                f"ms ({bound_by}){bar}")
+                f"its bound, plain {plain_text(plain_ms)}, bound "
+                f"{bound_ms:.5f} ms ({bound_by}){bar}")
             del r, k, v, w, args, y, want_y
     r, k, v = (torch.randn((1, 512, h, kd), generator=gen, device="cuda")
                for _ in range(3))
@@ -1425,11 +1837,11 @@ def serve_phase(torch, arch: str, counters) -> dict:
     return out
 
 
-def serve_profile(torch, model, params, n: int = 6000, steps: int = 8) -> dict:
+def serve_profile(torch, model, params, n: int = 6000, steps: int = 2) -> dict:
     """Where serving's time goes: one n-token prefill and ``steps`` decode
-    steps at 4 live slots under ``torch.profiler``: wall time, device busy
-    time, each hand-written kernel's time and share, the heaviest
-    kernels."""
+    steps at 4 live slots under ``torch.profiler`` (device activity only):
+    wall time, device busy time, each hand-written kernel's time and share,
+    the heaviest kernels."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1444,8 +1856,7 @@ def serve_profile(torch, model, params, n: int = 6000, steps: int = 8) -> dict:
         tok = torch.zeros(4, dtype=torch.int64, device="cuda")
         for phase in ("prefill", "decode"):
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 if phase == "prefill":
                     model.prefill(params, model.init_cache(1, n),
@@ -1653,15 +2064,24 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build: one nvcc per source, started together
+    # 2. build: one nvcc per source, started together; phase 3 needs only
+    # idm.cu, so it runs while the other three finish (its timings are
+    # device times), and they are joined before phase 4's host-clock sweep
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        list(pool.map(build.load, ("idm", "flash_attention", "rglru", "wkv6")))
-    log(f"built {SOURCE}, {FLASH_SOURCE}, {RGLRU_SOURCE} and {WKV6_SOURCE} "
-        f"for sm_90a in {time.perf_counter() - t0:.2f} s")
+    pool = ThreadPoolExecutor(4)
+    builds = {n: pool.submit(build.load, n)
+              for n in ("idm", "flash_attention", "rglru", "wkv6")}
+    builds["idm"].result()
+    log(f"built {SOURCE} for sm_90a in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions
     nb_results, idm_results = kernel_phase(torch, idm, ref)
+    for done in builds.values():
+        done.result()
+    pool.shutdown()
+    log(f"built {FLASH_SOURCE}, {RGLRU_SOURCE} and {WKV6_SOURCE} for sm_90a "
+        f"while phase 3 ran: all four ready {time.perf_counter() - t0:.2f} s "
+        "after the build started")
 
     # 4. the sweep at full size through the launcher
     argv = [
@@ -1745,9 +2165,10 @@ def main() -> None:
     # 7a. the recording, checkpointed, supervised sweep in-process; 7b. the
     # controller over the full-size recording sweep (the gate)
     record = record_phase(torch, idm, a["state"])
-    pipeline = pipeline_phase(torch, wall)
-    # 7c. the LM inputs of 7b's dataset
+    pipeline = pipeline_phase(torch, sweep)
+    # 7c. the LM inputs of 7b's dataset; 7d. training on it
     tokens_phase(torch, pipeline["dataset"])
+    train = train_phase(torch, pipeline["dataset"], (idm, fa, rg, rw))
 
     main_nb = nb_results[0]
     main_idm = idm_results[0]
@@ -1761,7 +2182,8 @@ def main() -> None:
                                "record pipelined, 2 blocks":
                                    record["launches_pipe"],
                                "pipeline (final worker)":
-                                   pipeline["launches_final_worker"]},
+                                   pipeline["launches_final_worker"],
+                               "train": train["launches"]["neighbor_kernel"]},
              max_abs_err=max(r["max_abs_err"] for r in nb_results),
              ms=main_nb["ms"], plain_ms=main_nb["plain_ms"],
              bound_ms=main_nb["bound_ms"], bound_by=main_nb["bound_by"],
@@ -1769,6 +2191,8 @@ def main() -> None:
         dict(name="idm_accel_kernel", route="cuda", source=SOURCE,
              replaces="src/repro/kernels/idm.py:130",
              launches=counts["idm_accel_kernel"],
+             launches_by_path={"sweep": counts["idm_accel_kernel"],
+                               "train": train["launches"]["idm_accel_kernel"]},
              max_abs_err=max(r["max_abs_err"] for r in idm_results),
              ms=main_idm["ms"], all_pairs_ms=main_idm["all_pairs_ms"],
              plain_ms=main_idm["plain_ms"], bound_ms=main_idm["bound_ms"],
@@ -1816,8 +2240,9 @@ def main() -> None:
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
         replaces="src/repro/kernels/flash_attention.py:135",
         launches=launched("flash_attention"),
-        launches_by_path={arch: out["launches"]["flash_attention"]
-                          for arch, out in served.items()},
+        launches_by_path={**{arch: out["launches"]["flash_attention"]
+                             for arch, out in served.items()},
+                          "train": train["launches"]["flash_attention"]},
         max_abs_err=max(r["max_abs_err"] for r in fl_results),
         ms=main_fl["ms"], plain_ms=main_fl["plain_ms"],
         bound_ms=main_fl["bound_ms"], bound_by=main_fl["bound_by"],
@@ -1833,6 +2258,8 @@ def main() -> None:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launched(name),
+            launches_by_path={arch: served[arch]["launches"][name],
+                              "train": train["launches"][name]},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

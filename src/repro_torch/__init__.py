@@ -7,14 +7,23 @@ slice at a time. Ported so far:
   (:mod:`repro_torch.core.prng`), the neighborhood engine with its
   hand-written CUDA kernel (:mod:`repro_torch.core.neighbors`,
   :mod:`repro_torch.kernels`), the four scenarios, the batched physics
-  step, the chunk planner and runner, the aggregation, and the launcher
-  ``python -m repro_torch.launch.sweep``;
-* LM serving for the dense GQA families (gemma2-2b, qwen1.5-0.5b): the
-  configs (:mod:`repro_torch.config`, :mod:`repro_torch.configs`), the
-  model stack (:mod:`repro_torch.models`) whose every full-sequence
-  attention runs the hand-written flash attention kernel, the
-  continuous-batching engine (:mod:`repro_torch.serve`) and the launcher
-  ``python -m repro_torch.launch.serve``.
+  step, the chunk planner and runner (with per-device blocks), the
+  aggregation, and the launcher ``python -m repro_torch.launch.sweep``;
+* the Phase III pipeline around it: trajectory recording, the sharded
+  dataset, crash-atomic checkpoints (:mod:`repro_torch.ckpt`), injected
+  faults, the supervised loop with pipelined host I/O, the process
+  controller ``python -m repro_torch.launch.controller``, and the token
+  data path from shards to LM batches (:mod:`repro_torch.data`);
+* LM serving for gemma2-2b, qwen1.5-0.5b, recurrentgemma-2b and rwkv6-3b:
+  the configs (:mod:`repro_torch.config`, :mod:`repro_torch.configs`), the
+  model stack (:mod:`repro_torch.models`) whose prefill attention and
+  recurrences run hand-written CUDA kernels, the continuous-batching
+  engine (:mod:`repro_torch.serve`) and ``python -m
+  repro_torch.launch.serve``;
+* LM training (:mod:`repro_torch.train`): AdamW, schedules, clipping,
+  microbatching, remat and the checkpointed trainer, through the plain
+  attention and recurrence paths as the reference trains through XLA, and
+  ``python -m repro_torch.launch.train``.
 
 Entry points run on ``cuda`` unless given ``device="cpu"``. The package
 imports ``torch`` and numpy only: never ``jax``, never ``repro``.

@@ -1,9 +1,10 @@
 """Config system: frozen dataclasses + an architecture registry.
 
-The port's copy of ``repro/config/base.py`` (``ModelConfig``, ``ServeConfig``
-and the registry; the training, shape and mesh configs come with the
-slices that use them). Field names, defaults and :meth:`ModelConfig.reduced`
-are the reference's, so a reduced config here has the same shapes as the
+The port's copy of ``repro/config/base.py`` (``ModelConfig``,
+``ShapeConfig`` and ``SHAPES``, ``TrainConfig``, ``ServeConfig`` and the
+registry; the mesh config comes with the sharding slice, ROADMAP queue 1
+item 10). Field names, defaults and :meth:`ModelConfig.reduced` are the
+reference's, so a reduced config here has the same shapes as the
 reference's reduced config of the same architecture.
 """
 
@@ -131,6 +132,49 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, name=self.name + "-smoke", **small)
+
+
+# --------------------------------------------------------------------------
+# Shapes (assigned per-paper input-shape set)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# --------------------------------------------------------------------------
+# Train / serve configuration
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"  # "cosine" | "linear" | "constant"
+    microbatches: int = 1     # gradient-accumulation steps per update
+    remat: str = "full"       # "none" | "full" | "dots"
+    opt_state_dtype: str = "float32"
+    z_loss: float = 0.0
+    moe_aux_weight: float = 0.01
+    seed: int = 0
 
 
 @dataclass(frozen=True)

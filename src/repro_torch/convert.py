@@ -1,7 +1,11 @@
 """Carry state and weights across from the reference package, through numpy.
 
 :func:`lm_params_from_numpy` turns the reference's LM parameters (a nested
-dict of numpy arrays) into the port's :class:`~repro_torch.models.lm.LM`.
+dict of numpy arrays) into the port's :class:`~repro_torch.models.lm.LM`,
+and :func:`lm_params_to_numpy` turns an LM, or its gradients or moments
+keyed by parameter name, back into that layout;
+:func:`adamw_state_from_numpy` and :func:`adamw_state_to_numpy` carry an
+optimizer state across either way.
 
 The sweep has no weights; its state plays their part. These functions take
 a reference ``SweepState``/``SimState``/``SimMetrics``/``ScenarioParams``
@@ -28,6 +32,7 @@ from repro_torch.core.simulator import SimMetrics, SimState
 from repro_torch.core.sweep import SweepState
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import LM, stack_plan
+from repro_torch.train.optim import AdamWState
 
 
 def _tensor(x, device, batch: bool) -> torch.Tensor:
@@ -105,20 +110,15 @@ def _flatten(tree, prefix: str, out: dict) -> dict:
     return out
 
 
-def lm_params_from_numpy(tree, cfg: ModelConfig, device) -> LM:
-    """The reference's ``lm_init`` parameters (nested dict, numpy leaves)
-    → an :class:`LM` on ``device`` (``None`` means ``cuda``).
+def _unstack(tree, cfg: ModelConfig) -> dict:
+    """A tree in the reference's LM layout → ``{port parameter name:
+    leaf}``, checked against the names and shapes of an :class:`LM` of
+    ``cfg``.
 
     The reference's scanned stack ``blocks/l{j}`` (leaves ``[n_blocks,
     ...]``) is unstacked into layers ``i * len(pattern) + j`` after the
     ``head_layers``, followed by the ``tail_layers`` (recurrentgemma's
-    last two Griffin blocks). Values are cast to each parameter's type:
-    ``cfg.dtype``, except the leaves the reference keeps in f32 in any
-    model (the RG-LRU's ``mixer.lru.a_param``; the time mix's ``w_base``,
-    ``u``, ``ln_x_scale`` and ``ln_x_bias``). Every parameter must be
-    present and no other.
-    """
-    device = resolve_device(device)
+    last two Griffin blocks)."""
     plan = stack_plan(cfg)
     layers = list(tree.get("head_layers", []))
     layers += [_index(tree["blocks"][f"l{j}"], i)
@@ -129,20 +129,108 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device) -> LM:
                      "", {})
     for i, layer in enumerate(layers):
         _flatten(layer, f"layers.{i}.", state)
-    params = LM(cfg, device)
-    want = params.state_dict()
+    want = LM(cfg, torch.device("meta")).state_dict()
     if set(state) != set(want):
         raise ValueError(f"parameter names differ: missing "
                          f"{sorted(set(want) - set(state))}, unexpected "
                          f"{sorted(set(state) - set(want))}")
+    for name, t in want.items():
+        if tuple(np.shape(state[name])) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {tuple(np.shape(state[name]))}, "
+                             f"expected {tuple(t.shape)}")
+    return state
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig, device) -> LM:
+    """The reference's ``lm_init`` parameters (nested dict, numpy leaves)
+    → an :class:`LM` on ``device`` (``None`` means ``cuda``).
+
+    The layers are unstacked as :func:`_unstack` says. Values are cast to
+    each parameter's type: ``cfg.dtype``, except the leaves the reference
+    keeps in f32 in any model (the RG-LRU's ``mixer.lru.a_param``; the
+    time mix's ``w_base``, ``u``, ``ln_x_scale`` and ``ln_x_bias``).
+    Every parameter must be present and no other.
+    """
+    state = _unstack(tree, cfg)
+    params = LM(cfg, resolve_device(device))
     with torch.no_grad():
-        for name, t in want.items():
-            src = _array_to_tensor(state[name])
-            if tuple(src.shape) != tuple(t.shape):
-                raise ValueError(f"{name}: shape {tuple(src.shape)}, expected "
-                                 f"{tuple(t.shape)}")
-            t.copy_(src.to(t.dtype))
+        for name, t in params.state_dict().items():
+            t.copy_(_array_to_tensor(state[name]).to(t.dtype))
     return params
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor → a numpy copy on the host (the tensor may be updated in
+    place later); bf16 and f16 widen to f32 (exactly)."""
+    t = t.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.cpu().numpy().copy()
+
+
+def lm_params_to_numpy(params, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: an :class:`LM`, or any
+    ``{parameter name: tensor}`` dict of it (gradients, moments), → the
+    reference's nested tree, the layers of ``stack_plan``'s blocks stacked
+    again ``[n_blocks, ...]`` under ``blocks/l{j}``. Leaves are numpy
+    arrays in the tensors' types, bf16 widened to f32."""
+    named = (dict(params.named_parameters()) if isinstance(params, LM)
+             else params)
+    plan = stack_plan(cfg)
+    plen, n_head = len(plan.pattern), len(plan.head)
+    tree: dict = {}
+    layers: dict[int, dict] = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            node = layers.setdefault(int(parts[1]), {})
+            parts = parts[2:]
+        else:
+            node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = _host(t)
+
+    def stack(trees):
+        return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+                else np.stack([t[k] for t in trees]) for k in trees[0]}
+
+    if plan.head:
+        tree["head_layers"] = [layers[i] for i in range(n_head)]
+    if plan.n_blocks:
+        tree["blocks"] = {
+            f"l{j}": stack([layers[n_head + i * plen + j]
+                            for i in range(plan.n_blocks)])
+            for j in range(plen)}
+    if plan.tail:
+        first = n_head + plan.n_blocks * plen
+        tree["tail_layers"] = [layers[first + i]
+                               for i in range(len(plan.tail))]
+    return tree
+
+
+def adamw_state_from_numpy(tree, cfg: ModelConfig, device):
+    """A reference ``AdamWState`` (``step``, and ``m``/``v`` in the
+    reference's LM layout, numpy leaves) → the port's
+    :class:`~repro_torch.train.optim.AdamWState` on ``device``: moments
+    keyed by parameter name in the arrays' own types, step int32."""
+    device = resolve_device(device)
+
+    def moments(t):
+        return {k: _array_to_tensor(a).to(device)
+                for k, a in _unstack(t, cfg).items()}
+
+    step = torch.tensor(int(np.asarray(tree.step)), dtype=torch.int32,
+                        device=device)
+    return AdamWState(step=step, m=moments(tree.m), v=moments(tree.v))
+
+
+def adamw_state_to_numpy(state, cfg: ModelConfig):
+    """The port's ``AdamWState`` → the same ``AdamWState`` type with numpy
+    leaves in the reference's layout (:func:`lm_params_to_numpy`)."""
+    return type(state)(step=np.asarray(state.step.cpu().numpy()),
+                       m=lm_params_to_numpy(state.m, cfg),
+                       v=lm_params_to_numpy(state.v, cfg))
 
 
 def to_numpy(tree):

@@ -6,7 +6,8 @@ whose tensors keep the reference's layouts (``wq`` is ``[d, H, hd]``), so
 weights carry across one to one (:mod:`repro_torch.convert`). The
 functions take those containers and mirror the reference's functions.
 
-Parameters are created with ``requires_grad=False``: this slice serves.
+Parameters are created with ``requires_grad=False``, as serving needs no
+gradient; the train step (:mod:`repro_torch.train.step`) switches them on.
 Initial values are drawn from an explicit ``torch.Generator`` on the
 parameters' device; they follow the reference's distributions, not its
 numbers (a JAX key and a torch generator give different streams).
@@ -151,21 +152,44 @@ def embed_tokens(cfg: ModelConfig, p: Embedding, tokens: torch.Tensor):
     return x
 
 
+class _HalfProductF32(torch.autograd.Function):
+    """``x2 [N, d] @ w[V, d]ᵀ`` of two bf16 (or f16) CUDA tensors as one GEMM
+    with an f32 output. ``aten::mm.dtype`` has no autograd formula, so the
+    backward is written here: what the reference's f32 einsum transposes
+    to, both products in f32, each cast back to its operand's type."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ w.float()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (g.t() @ x2.float()).to(w.dtype)
+        return gx, gw
+
+
 def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [..., d] @ w[V, d]ᵀ`` in f32, as the reference's
     ``einsum(x.astype(f32), w.astype(f32))``.
 
     A bf16 product is exact in f32, so for a bf16 table on the card this
     is one bf16 GEMM that accumulates and writes in f32
-    (``torch.mm(..., out_dtype=float32)``): no f32 copy of the table (2.36 GB
-    for gemma2-2b's tied 256,000 × 2,304 table) is made per call. On the CPU,
-    which serves only reduced models, both operands are cast to f32.
+    (``torch.mm(..., out_dtype=float32)``, with its backward in
+    :class:`_HalfProductF32`): no f32 copy of the table (2.36 GB for
+    gemma2-2b's tied 256,000 × 2,304 table) is made per forward call. On
+    the CPU, which runs only reduced models, both operands are cast to f32.
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.is_cuda and x.dtype == w.dtype and w.dtype in (torch.bfloat16,
                                                         torch.float16):
-        out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        out = _HalfProductF32.apply(x2, w)
     else:
         out = x2.float() @ w.float().t()
     return out.reshape(*lead, w.shape[0])

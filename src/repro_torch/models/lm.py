@@ -7,14 +7,26 @@ order: the ``head`` layers, then ``n_blocks`` repetitions of
 ``cfg.layer_pattern``, then the ``tail`` layers (:func:`stack_plan`). The
 converter (:func:`repro_torch.convert.lm_params_from_numpy`) unstacks the
 reference's parameters into it. Caches are a list with one dict per layer.
+
+``lm_apply(..., remat=)`` rematerialises as the reference does: each group
+of ``pattern_len`` layers of the scanned blocks is one checkpoint (the
+head and tail layers are not), ``"full"`` keeping only the group's input,
+``"dots"`` also the outputs of the products without batch dims.
 """
 
 from __future__ import annotations
 
+import contextvars
+import functools
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.blocks import (
@@ -59,6 +71,28 @@ def stack_plan(cfg: ModelConfig) -> StackPlan:
         for j in range(rest - n_blocks * plen)
     )
     return StackPlan(tuple(head), n_blocks, pattern, tail)
+
+
+def stacked_layers(cfg: ModelConfig) -> range:
+    """Indices of the layers the reference stacks ``[n_blocks, ...]`` and
+    scans: those of ``stack_plan``'s blocks, between the head and the
+    tail."""
+    plan = stack_plan(cfg)
+    start = len(plan.head)
+    return range(start, start + plan.n_blocks * len(plan.pattern))
+
+
+def reference_ranks(params: "LM", cfg: ModelConfig) -> dict[str, int]:
+    """Each parameter's rank in the reference's tree: its own, plus the
+    stack axis for a layer in :func:`stacked_layers` (a norm scale ``[d]``
+    of such a layer is a ``[n_blocks, d]`` leaf there)."""
+    stacked = stacked_layers(cfg)
+    ranks = {}
+    for name, p in params.named_parameters():
+        parts = name.split(".")
+        ranks[name] = p.ndim + (parts[0] == "layers"
+                                and int(parts[1]) in stacked)
+    return ranks
 
 
 def layer_plan(cfg: ModelConfig) -> list[tuple[str, bool, int | None]]:
@@ -110,15 +144,59 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=x.device)[None].expand(b, s)
 
 
+REMAT = ("none", "full", "dots")
+# products without batch dims: what the reference's "dots" policy
+# (checkpoint_dots_with_no_batch_dims) keeps
+_SAVED_PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def _keep_products(ctx, op, *args, **kwargs):
+    if op.overloadpacket in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def lm_apply(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
-             positions: torch.Tensor | None = None):
+             positions: torch.Tensor | None = None, remat: str = "none"):
     """Returns (logits [B,S,V] f32, moe_aux scalar)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat is one of {REMAT}, not {remat!r}")
     x = embed_tokens(cfg, params.embed, tokens)
     if positions is None:
         positions = _positions(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in params.layers:
-        x, a = block_apply(cfg, p, x, positions)
+
+    def group(x, layers):
+        a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p in layers:
+            x, a = block_apply(cfg, p, x, positions)
+            a_sum = a_sum + a
+        return x, a_sum
+
+    # (layers, rematerialised): the head's layers one by one, then one
+    # group of pattern_len layers per scanned block, then the tail's
+    stacked = stacked_layers(cfg)
+    layers = list(params.layers)
+    segments = ([([p], False) for p in layers[:stacked.start]]
+                + [(layers[i:i + cfg.pattern_len], remat != "none")
+                   for i in stacked[::cfg.pattern_len]]
+                + [([p], False) for p in layers[stacked.stop:]])
+    kw = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _keep_products)}
+          if remat == "dots" else {})
+    # On the card the autograd engine recomputes a checkpoint on its own
+    # thread, where this thread's context variables (attention_impl,
+    # recurrence_impl) are unset: recompute in a copy of this context.
+    fwd_ctx = contextvars.copy_context()
+
+    def in_fwd_ctx(x, seg):
+        return fwd_ctx.copy().run(group, x, seg)
+
+    for seg, remat_seg in segments:
+        if remat_seg:
+            x, a = checkpoint(in_fwd_ctx, x, seg, use_reentrant=False, **kw)
+        else:
+            x, a = group(x, seg)
         aux = aux + a
     x = norm(cfg, params.final_norm, x)
     logits = logits_from_hidden(cfg, params.embed,

@@ -31,9 +31,10 @@ class Model:
                              f"{self.device}")
         return _lm.lm_init(self.cfg, generator)
 
-    def apply(self, params: _lm.LM, batch: dict):
-        """Returns (logits [B,S,V] f32, moe_aux)."""
-        return _lm.lm_apply(params, self.cfg, batch["tokens"])
+    def apply(self, params: _lm.LM, batch: dict, remat: str = "none"):
+        """Returns (logits [B,S,V] f32, moe_aux); ``remat`` is ``"none"``,
+        ``"full"`` or ``"dots"`` (:func:`repro_torch.models.lm.lm_apply`)."""
+        return _lm.lm_apply(params, self.cfg, batch["tokens"], remat=remat)
 
     def init_cache(self, batch: int, max_seq: int) -> list[dict]:
         return _lm.lm_cache_init(self.cfg, batch, max_seq, self.device)

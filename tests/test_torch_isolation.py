@@ -1,8 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module and running
 its sweep launcher (plain; recording with checkpoints, a dataset and
 injected faults; two blocks pipelined), its LM batches from that dataset
-and synthetic ones, its process controller and its serve launcher on the
-CPU never loads ``jax`` or ``repro``; asking for ``cuda`` without a card
+and synthetic ones, its train launcher on both, its process controller
+and its serve launcher on the CPU never loads ``jax`` or ``repro``; asking for ``cuda`` without a card
 raises instead of falling back to the CPU."""
 
 import json
@@ -48,6 +48,12 @@ cfg = get_arch("gemma2-2b").reduced()
 next(sim_token_batches(cfg, SimConfig(n_slots=8), 2, 16, shard_dir="ds2",
                        device="cpu"))
 next(synthetic_batches(cfg, 2, 16, device="cpu"))
+for data in (["--data", "synthetic"], ["--data", "sim", "--shard-dir", "ds2"]):
+    sys.argv = ["repro_torch.launch.train", "--device", "cpu", "--steps", "3",
+                "--batch", "2", "--seq", "16", "--log-every", "1",
+                "--microbatches", "2", "--remat", "full",
+                "--ckpt-dir", "train_ck_" + data[1]] + data
+    runpy.run_module("repro_torch.launch.train", run_name="__main__")
 sys.argv = ["repro_torch.launch.controller", "--ckpt-dir", "ctl",
             "--poll", "0.1", "--", "--device", "cpu", "--instances", "2",
             "--steps", "10", "--chunk-steps", "10", "--slots", "8"]
@@ -82,8 +88,14 @@ def test_no_jax_or_reference_imports(tmp_path):
                  "repro_torch.configs.recurrentgemma_2b",
                  "repro_torch.configs.rwkv6_3b", "repro_torch.serve.engine",
                  "repro_torch.launch.serve", "repro_torch.launch.mesh",
-                 "repro_torch.data.sim_dataset", "repro_torch.data.synthetic"):
+                 "repro_torch.data.sim_dataset", "repro_torch.data.synthetic",
+                 "repro_torch.train.optim", "repro_torch.train.step",
+                 "repro_torch.train.trainer", "repro_torch.launch.train"):
         assert name in result["modules"]
+    assert proc.stdout.count("[trainer] step 3/3") == 2
+    for data in ("synthetic", "sim"):
+        assert (tmp_path / f"train_ck_{data}" / "step_000000003"
+                / "manifest.json").exists()
     assert proc.stdout.count("[serve] completed 2/2 requests") == 3
     records = json.loads(out.read_text())["records"]
     assert len(records) == 4 and all(r["steps"] == 20 for r in records)
@@ -117,6 +129,7 @@ def test_cuda_request_without_card_raises(monkeypatch):
     from repro_torch.config.base import get_arch
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import sweep as launcher
+    from repro_torch.launch import train as train_launcher
     from repro_torch.models.registry import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -135,4 +148,6 @@ def test_cuda_request_without_card_raises(monkeypatch):
             build_model(get_arch(arch).reduced())
         with pytest.raises(RuntimeError, match="cuda"):
             serve_launcher.main(["--arch", arch, "--requests", "1"])
+        with pytest.raises(RuntimeError, match="cuda"):
+            train_launcher.main(["--arch", arch, "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -16,15 +16,17 @@ import torch
 from repro_torch.core.neighbors import build_tables
 from repro_torch.core.scenario import SimConfig
 from repro_torch.core.sweep import SweepConfig, SweepRunner
-from repro_torch.config.base import ServeConfig, get_arch
+from repro_torch.config.base import ServeConfig, TrainConfig, get_arch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import idm, ref
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import rwkv6 as rw
 from repro_torch.models.attention import attention_impl
+from repro_torch.models.common import f32_product
 from repro_torch.models.recurrent import recurrence_impl
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.train import adamw_init, make_train_step
 
 L = 4  # 3 main lanes + ramp
 FIELDS = ("lead_idx", "lead_gap", "has_lead", "foll_idx", "foll_gap",
@@ -818,3 +820,55 @@ def test_recurrent_engine_on_the_card_matches_per_request_greedy(cuda, arch):
     rids = [eng.submit(pr, max_new=4) for pr in prompts]
     results = eng.run()
     assert [results[r] for r in rids] == refs
+
+
+@pytest.mark.cuda
+def test_f32_product_passes_the_gradient_to_both_operands(cuda):
+    """The card's bf16 ``f32_product`` (one GEMM with an f32 output, which
+    has no autograd formula of its own) gives both operands the gradient
+    of the f32 product, rounded to bf16."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    x = torch.randn((3, 7, 256), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((1000, 256), generator=gen, device=cuda).bfloat16()
+    dy = torch.randn((3, 7, 1000), generator=gen, device=cuda)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    out = f32_product(x, w)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, x.float() @ w.float().t(), rtol=1e-5,
+                               atol=1e-5)
+    gx, gw = torch.autograd.grad((out * dy).sum(), [x, w])
+    assert gx.dtype == gw.dtype == torch.bfloat16
+    want_gx = dy @ w.detach().float()
+    want_gw = dy.reshape(-1, 1000).t() @ x.detach().float().reshape(-1, 256)
+    torch.testing.assert_close(gx.float(), want_gx, rtol=2**-8, atol=1e-5)
+    torch.testing.assert_close(gw.float(), want_gw, rtol=2**-8, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-2b",
+                                  "recurrentgemma-2b", "rwkv6-3b"])
+def test_train_step_on_the_card_reaches_every_parameter(cuda, arch):
+    """A bf16 train step on the card launches no hand kernel, and every
+    parameter moves (its gradient came through the card's f32_product)."""
+    model = build_model(get_arch(arch).reduced(), cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    before = {k: p.detach().clone() for k, p in params.named_parameters()}
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 33), generator=gen,
+                         device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tc = TrainConfig(learning_rate=1e-2, warmup_steps=0, weight_decay=0.0)
+    for mod in (fa, idm, rg, rw):
+        mod.reset_launches()
+    step = make_train_step(model, tc)
+    params, _, metrics = step(params, adamw_init(before), batch)
+    torch.cuda.synchronize()
+    assert all(n == 0 for mod in (fa, idm, rg, rw)
+               for n in mod.launches.values())
+    assert torch.isfinite(metrics["loss"])
+    for name, p in params.named_parameters():
+        assert not torch.equal(p.detach(), before[name]), name
+
