@@ -81,11 +81,16 @@ Phases, in order; any failure raises and exits non-zero:
    card for gemma2-2b; prints their shape and vocabulary;
 7d. train — training through the plain attention and recurrence paths,
    every hand kernel's launch count 0 in each part: (a) qwen1.5-0.5b,
-   gemma2-2b, recurrentgemma-2b and rwkv6-3b reduced, on the card and on
-   the CPU from the same seeded weights and batch: the loss's gradient,
-   leaf by leaf, in f32 within rtol 1e-4 plus 3e-5 of the leaf's largest
-   entry and in bf16 within rtol 2^-6 plus 2^-5 of it and an L2 error of
-   2^-5, every parameter's gradient nonzero on the card (through the
+   gemma2-2b, recurrentgemma-2b, rwkv6-3b, olmoe-1b-7b, minicpm3-4b and
+   deepseek-v2-236b reduced, on the card and on
+   the CPU from the same seeded weights and batch: the loss's gradient
+   (the MoE aux loss in it), leaf by leaf, in f32 within rtol 1e-4 plus
+   3e-5 of the leaf's largest entry and in bf16 within rtol 2^-6 plus
+   2^-5 of it and an L2 error of 2^-5 (an MoE arch's bf16 gradient on the
+   card with the CPU run's routing, ``moe_routes(replay=)``: the two
+   devices round bf16 apart and break near ties apart; the tokens routed
+   otherwise on their own are printed), every parameter's gradient
+   nonzero on the card (through the
    logits product's own backward); then 2 f32 steps (4 x 64 in 2
    microbatches, weight decay 0.1) from the same weights and batches: the
    loss within rtol 1e-5, the gradient norm within 1e-4, the first moments
@@ -120,7 +125,15 @@ Phases, in order; any failure raises and exits non-zero:
    q x 20 draws at gemma2-2b's global S 512 shape in bf16: none may cross
    the bf16 tolerance; prints the largest ratio of error to tolerance, and
    the same for a plain attention that rounds p to bf16 before
-   normalising (where the first Hopper build rounded it);
+   normalising (where the first Hopper build rounded it); then the MLA
+   route (``models/attention.py::mla_attention``) at minicpm3-4b's shape
+   (H = K = 40, q/k 96 and v 64 zero-padded to 128, S 512/6000) and
+   deepseek-v2-236b's (H = K = 128, q/k 192 and v 128 padded to 256, S
+   512/2048), bf16 and f32: the sliced context against ``ref_attention``
+   on the unpadded tensors at the same tolerances; the kernel timed on
+   the padded tensors, its bound from the unpadded work (2·(dn + dr) +
+   2·dv flops a live pair), the plain version and SDPA on the unpadded
+   tensors;
 9. recurrences — ``rglru_linear_scan`` against ``ref_rglru`` (B 1 and 4,
    W 2560, S 37/512/6000 with mild decays and at B 1, S 6000 strong ones
    with exact zeros and ones; ys rtol 2e-2 atol 2e-3 in bf16, 1e-5 in f32,
@@ -138,7 +151,8 @@ Phases, in order; any failure raises and exits non-zero:
    recurrence);
 
 then, for each served model in turn (gemma2-2b, recurrentgemma-2b,
-rwkv6-3b), freeing each before the next:
+rwkv6-3b, then olmoe-1b-7b and minicpm3-4b at ``SERVE_MOE_MLA``'s shorter
+traffic), freeing each before the next:
 
 10. serve — the model at full width (bf16, seeded random weights) through
    the serve launcher: 8 requests (prompt lengths 16..7999 drawn from
@@ -159,6 +173,20 @@ rwkv6-3b), freeing each before the next:
    share, each kernel's time and share, the heaviest kernels;
 13. engine = greedy — the model at full width in f32: the engine's tokens
    (6 requests through 4 slots) equal per-request greedy prefill + decode.
+
+olmoe-1b-7b and minicpm3-4b run 10-13 with 4 requests (prompts 16..2047
+from seed 0) of 16 new tokens, max_seq 4096, phases 11 and 12 at 2048
+tokens and 13 with 3 requests; flash launches once per attention layer
+per prefill (16 and 62). olmoe prints the MoE choices dropped past
+capacity per prefill and per decode step (and in 13's engine run); phase
+11 prints, per MoE layer, the tokens whose experts differ between the
+kernel and plain paths, holds f32 as above with each path routing on its
+own, and holds bf16 with the plain paths routed as the bf16 kernel path
+(near ties break apart in bf16, and a moved choice moves who is dropped
+after it), printing the distances of the paths routing on their own
+beside it. Then deepseek-v2-236b at its published widths cut to 2 layers
+(the dense first layer and one MoE layer; 5.36 B parameters) runs phase
+11 at 2048 tokens: flash launched once per layer in each kernel prefill.
 
 The second-to-last lines are the kernels JSON and the ``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -203,12 +231,13 @@ PIPELINE = dict(instances=1024, slots=128, steps=1200, chunk_steps=200,
                 chaos_kills=2, timeout_s=900)
 # phase 7c: LM batches of phase 7b's dataset
 TOKENS = dict(batch=8, seq=1024, batches=4)
-# phase 7d: training. (a) the four archs reduced, 2 steps on the card and on
+# phase 7d: training. (a) the seven archs reduced, 2 steps on the card and on
 # the CPU from the same weights and batches (f32), and a bf16 gradient on
 # the card; (b) the reduced qwen resumed from a checkpoint; (c) qwen1.5-0.5b
 # at full width on phase 7b's dataset through the launcher (sequences of
 # 4096, the reference's train_4k shape, in 4 microbatches of 2)
-TRAIN_ARCHS = ("qwen1.5-0.5b", "gemma2-2b", "recurrentgemma-2b", "rwkv6-3b")
+TRAIN_ARCHS = ("qwen1.5-0.5b", "gemma2-2b", "recurrentgemma-2b", "rwkv6-3b",
+               "olmoe-1b-7b", "minicpm3-4b", "deepseek-v2-236b")
 TRAIN_SMALL = dict(steps=2, batch=4, seq=64, microbatches=2, lr=1e-3,
                    weight_decay=0.1)
 # card against CPU gradients, leaf by leaf (``grads_close``): f32 at the
@@ -244,6 +273,18 @@ SERVE = dict(requests=8, slots=4, max_seq=8192, max_new=32, min_prompt=16,
 # plain WKV6 is a Python loop over the sequence, hence rwkv6's shorter prompt
 SERVE_ARCHS = (("gemma2-2b", 5000), ("recurrentgemma-2b", 3000),
                ("rwkv6-3b", 2048))
+# the MoE and MLA families at full width: 4 requests (prompts 16..2047) of 16
+# new tokens through 4 slots, phases 11-12 at 2048 tokens, phase 13 with 3
+# requests; shorter than the others' so that the two models and deepseek's
+# phase 11 add at most ~90 s to the script
+SERVE_MOE_MLA = dict(requests=4, slots=4, max_seq=4096, max_new=16,
+                     min_prompt=16, max_prompt=2048)
+MOE_MLA_ARCHS = ("olmoe-1b-7b", "minicpm3-4b")
+MOE_MLA_PROMPT = 2048
+ENGINE_REQUESTS = {"olmoe-1b-7b": 3, "minicpm3-4b": 3}
+# deepseek-v2-236b (472 GB of bf16 weights at 60 layers) at its published
+# widths cut to its dense first layer and one MoE layer: phase 11 only
+DEEPSEEK = dict(arch="deepseek-v2-236b", n_layers=2, prompt=2048)
 # the kernel each layer kind's prefill launches
 KERNEL_OF_KIND = {"global": "flash_attention", "local": "flash_attention",
                   "recurrent": "rglru_linear_scan", "rwkv": "wkv6"}
@@ -1184,7 +1225,7 @@ def train_phase(torch, ds, counters) -> dict:
     # two train steps in f32
     t = TRAIN_SMALL
     rng = np.random.default_rng(7)
-    small = {}
+    small, flipped = {}, {}
     for arch in TRAIN_ARCHS:
         batches = []
         for _ in range(t["steps"]):
@@ -1199,11 +1240,22 @@ def train_phase(torch, ds, counters) -> dict:
             gen.manual_seed(0)
             cpu_params = build_model(cfg, "cpu").init(gen)
             card_params = copy.deepcopy(cpu_params).to("cuda")
-            card_g = loss_grads(torch, build_model(cfg, "cuda"), card_params,
-                                batches[0])
+            with moe_routes(experts=True) as card_routes:
+                card_g = loss_grads(torch, build_model(cfg, "cuda"),
+                                    card_params, batches[0])
             counted(f"{arch} {dtype} gradient")
-            cpu_g = loss_grads(torch, build_model(cfg, "cpu"), cpu_params,
-                               batches[0])
+            with moe_routes(experts=True) as cpu_routes:
+                cpu_g = loss_grads(torch, build_model(cfg, "cpu"), cpu_params,
+                                   batches[0])
+            if cpu_routes and dtype == "bfloat16":
+                # bf16 on the card and on the CPU round apart, and an MoE
+                # breaks near ties (and who is dropped after them) on that
+                # rounding: hold the gradients with the CPU's routing
+                flipped[arch] = sum(experts_differ(card_routes, cpu_routes))
+                with moe_routes(replay=cpu_routes):
+                    card_g = loss_grads(torch, build_model(cfg, "cuda"),
+                                        card_params, batches[0])
+                counted(f"{arch} {dtype} gradient, routed as on the CPU")
             # the card's bf16 logits product has its own backward
             # (models/common.py): every parameter must get a gradient
             dead = [k for k, g in card_g.items() if not bool(g.any())]
@@ -1233,10 +1285,14 @@ def train_phase(torch, ds, counters) -> dict:
                            cpu_loss=[m["loss"] for m in cpu_m],
                            grad_norm=[m["grad_norm"] for m in card_m],
                            worst_over_leaf_max=worst, params=len(card_g),
-                           card_s=card_s)
+                           card_s=card_s,
+                           bf16_expert_sets_differ=flipped.get(arch))
+        routed = ("" if arch not in flipped else
+                  f" (bf16 with the CPU's MoE routing: on its own the card "
+                  f"routed {flipped[arch]} token-layers to other experts)")
         log(f"train: {arch} reduced, card vs CPU: the loss's gradient, "
             f"every leaf, f32 within {worst['float32']:.3g} and bf16 within "
-            f"{worst['bfloat16']:.3g} of the leaf's largest entry; "
+            f"{worst['bfloat16']:.3g} of the leaf's largest entry{routed}; "
             f"{t['steps']} f32 steps of {t['batch']} x {t['seq']} in "
             f"{t['microbatches']} microbatches: loss "
             f"{card_m[-1]['loss']:.7f} vs {cpu_m[-1]['loss']:.7f}, grad norm "
@@ -1555,6 +1611,92 @@ def flash_phase(torch, fa, ref) -> list[dict]:
     return results
 
 
+# (label, B, S, H, q/k head dim dn + dr, v head dim dv): the MLA layers'
+# prefill shapes of minicpm3-4b (q/k 64 + 32, v 64) and deepseek-v2-236b
+# (128 + 64, v 128); H = K, no window, no softcap
+MLA_SHAPES = [
+    (f"{arch} MLA S={s}", 1, s, h, dqk, dv)
+    for arch, h, dqk, dv, lengths in (("minicpm3-4b", 40, 96, 64, (512, 6000)),
+                                      ("deepseek-v2-236b", 128, 192, 128,
+                                       (512, 2048)))
+    for s in lengths
+]
+
+
+def mla_flash_phase(torch, fa, ref) -> list[dict]:
+    """The MLA route's kernel calls: q and k (head dim dn + dr) and v (dv)
+    zero-padded to the kernel head dim that holds them
+    (``models/attention.py::mla_attention``: 96 → 128, 192 → 256), the
+    kernel's context sliced back to dv and held against ``ref_attention``
+    on the unpadded tensors at ``FLASH_TOL``; the kernel timed on the padded
+    tensors, the plain version and ``scaled_dot_product_attention`` on the
+    unpadded ones. The bound counts the unpadded work: each input and the
+    output once, and 2·(dn + dr) + 2·dv flops a live pair a head."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import mla_attention, mla_head_dim
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    results = []
+    for label, b, s, h, dqk, dv in MLA_SHAPES:
+        hd = mla_head_dim(max(dqk, dv))
+        scale = dqk ** -0.5
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k = (torch.randn((b, s, h, dqk), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            v = torch.randn((b, s, h, dv), generator=gen, device="cuda").to(dt)
+            n0 = fa.launches["flash_attention"]
+            got = mla_attention(q, k, v, scale)
+            if fa.launches["flash_attention"] != n0 + 1 or got.shape != (
+                    b, s, h, dv):
+                raise AssertionError(f"{label}: the MLA route did not launch "
+                                     "the kernel once")
+            want = ref.ref_attention(q, k, v, True, 0, 0.0, scale)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **FLASH_TOL[dtype])
+            err = float((got.float() - want.float()).abs().max())
+            qp, kp, vp = (F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
+            reps, trials = (2, 5) if s > 1024 else (10, 21)
+            ms = device_ms(lambda: fa.flash_attention(
+                qp, kp, vp, causal=True, scale=scale), reps, trials)
+            plain_ms = device_ms(lambda: ref.ref_attention(
+                q, k, v, True, 0, 0.0, scale), 1, trials)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True,
+                                                      scale=scale)
+            torch.testing.assert_close(lib().transpose(1, 2).float(),
+                                       want.float(), **FLASH_TOL[dtype])
+            library_ms = device_ms(lib, reps, trials)
+            pairs = live_pairs(s, s, True, 0) * b * h
+            bytes_moved = b * s * h * (2 * dqk + 2 * dv) * q.element_size()
+            flops = (2 * dqk + 2 * dv) * pairs
+            bound_ms, bound_by = bound(bytes_moved, flops,
+                                       TENSOR_OPS_PER_S[dtype])
+            results.append(dict(shape=label, B=b, S=s, H=h, K=h, D=hd,
+                                D_qk=dqk, D_v=dv, window=0, softcap=0.0,
+                                q_scale=1.0, dtype=dtype, max_abs_err=err,
+                                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by,
+                                tflops=flops / ms / 1e9,
+                                bound_share=bound_ms / ms, library="sdpa",
+                                library_ms=library_ms))
+            log(f"flash_attention {label} {dtype}: q/k {dqk} and v {dv} "
+                f"padded to {hd}: max |err| {err:.3g} against the unpadded "
+                f"plain version (tol {FLASH_TOL[dtype]}); kernel {ms:.5f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s of unpadded work, "
+                f"{100 * bound_ms / ms:.2f}% of its bound), plain "
+                f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+                f"sdpa (unpadded) {library_ms:.5f} ms")
+            del q, k, v, qp, kp, vp, got, want
+    return results
+
+
 def rounded_before_normalising(torch, q, k, v, cap: float, tile: int = 64):
     """Causal softcapped attention with p rounded to bf16 before it is
     normalised: the online softmax over ``tile``-key tiles with a running
@@ -1781,33 +1923,95 @@ def kernels_per_prefill(cfg) -> dict[str, int]:
     return counts
 
 
-def serve_phase(torch, arch: str, counters) -> dict:
+@contextlib.contextmanager
+def moe_routes(experts: bool = False, replay: list | None = None):
+    """Record every MoE call's routing while the block runs: a list of
+    ``{"tokens", "dropped"[, "route"]}``, one entry per MoE layer per
+    model call, in call order (``dropped``: the choices past capacity, a
+    device tensor, so that recording adds no synchronisation; ``route``:
+    the experts, ranks and keep mask, with ``experts``). The port's
+    ``moe_route`` is wrapped for the block's duration and restored.
+
+    With ``replay`` (such a recording, with routes, of the same model on
+    the same tokens) each MoE call takes the recorded experts, ranks and
+    keep mask in place of its own, and its gates from its own router
+    probabilities at those experts: two runs then make the same discrete
+    choices, so that what differs between them is arithmetic."""
+    from repro_torch.models import ffn
+
+    calls = []
+    route = ffn.moe_route
+
+    def recording(cfg, p, xt):
+        out = route(cfg, p, xt)
+        if replay is not None:
+            probs, cap = out[0], out[5]
+            expert, ranks, keep = (t.to(xt.device)
+                                   for t in replay[len(calls)]["route"])
+            gate = probs.gather(1, expert)
+            gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+            out = (probs, gate, expert, ranks, keep, cap)
+        calls.append(dict(tokens=xt.shape[0], dropped=(~out[4]).sum(),
+                          route=out[2:5] if experts else None))
+        return out
+
+    ffn.moe_route = recording
+    try:
+        yield calls
+    finally:
+        ffn.moe_route = route
+
+
+def experts_differ(a: list[dict], b: list[dict]) -> list[int]:
+    """Per MoE layer, the tokens whose set of experts differs between two
+    recordings (with routes) of the same model on the same tokens."""
+    return [int((x["route"][0].sort(-1).values.cpu()
+                 != y["route"][0].sort(-1).values.cpu()).any(-1).sum())
+            for x, y in zip(a, b)]
+
+
+def drops_per_call(torch, calls: list[dict],
+                   n_moe: int) -> list[tuple[int, int]]:
+    """(tokens, dropped choices) of each model call: ``calls`` grouped into
+    runs of ``n_moe`` layers."""
+    if len(calls) % n_moe:
+        raise AssertionError(f"{len(calls)} MoE calls for {n_moe} layers")
+    dropped = torch.stack([c["dropped"] for c in calls]).tolist()
+    return [(calls[i]["tokens"], sum(dropped[i:i + n_moe]))
+            for i in range(0, len(calls), n_moe)]
+
+
+def serve_phase(torch, arch: str, counters, serve: dict = SERVE) -> dict:
     """``arch`` at full width through the serve launcher; the launch counts
     of every serving kernel (``counters``: the wrapper modules) are set to 0
-    just before and read just after."""
+    just before and read just after. An MoE model also prints the choices
+    dropped past capacity in each prefill and each decode step."""
+    from repro_torch.config.base import get_arch
     from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models.lm import layer_plan
 
     argv = ["--arch", arch, "--full-width", "--seed", "0", "--device", "cuda"]
-    for key, val in SERVE.items():
+    for key, val in serve.items():
         argv += ["--" + key.replace("_", "-"), str(val)]
     torch.cuda.reset_peak_memory_stats()
     for mod in counters:
         mod.reset_launches()
-    res = serve_launcher.main(argv)
+    with moe_routes() as calls:
+        res = serve_launcher.main(argv)
     launches = {name: n for mod in counters for name, n in mod.launches.items()}
     cfg, st = res["model"].cfg, res["stats"]
     lens = [len(p) for p in res["prompts"]]
     if "local" in cfg.layer_pattern and max(lens) <= cfg.window:
         raise AssertionError(f"no prompt longer than the window: {lens}")
-    if sorted(res["results"]) != list(range(SERVE["requests"])):
+    if sorted(res["results"]) != list(range(serve["requests"])):
         raise AssertionError(f"requests completed: {sorted(res['results'])}")
     for rid, toks in res["results"].items():
-        if len(toks) != SERVE["max_new"] or not all(
+        if len(toks) != serve["max_new"] or not all(
                 0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"request {rid} returned {toks}")
     per = kernels_per_prefill(cfg)
     want = {name: n * st["prefills"] for name, n in per.items()}
-    if st["prefills"] != SERVE["requests"] or launches != want:
+    if st["prefills"] != serve["requests"] or launches != want:
         raise AssertionError(
             f"{arch}: kernels launched {launches} for {st['prefills']} "
             f"prefills, expected {want} ({per} per prefill)")
@@ -1824,15 +2028,32 @@ def serve_phase(torch, arch: str, counters) -> dict:
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     counted = ", ".join(f"{name} {n} = {per[name]} x {st['prefills']}"
                         for name, n in launches.items() if per[name])
-    log(f"serve: {arch} full width bf16, {SERVE['requests']} requests "
-        f"through {SERVE['slots']} slots, prompt lengths {lens}, "
-        f"{SERVE['max_new']} new tokens each: wall {out['wall_s']:.3f} s; "
+    log(f"serve: {arch} full width bf16, {serve['requests']} requests "
+        f"through {serve['slots']} slots, prompt lengths {lens}, "
+        f"{serve['max_new']} new tokens each: wall {out['wall_s']:.3f} s; "
         f"time to first token median {out['ttft_median_s']:.4f} s, max "
         f"{out['ttft_max_s']:.4f} s; prefill {out['prefill_tokens']} tokens, "
         f"{out['prefill_tokens_per_s']:.1f} tokens/s; decode "
         f"{out['decode_tokens']} tokens in {out['decode_steps']} steps, "
         f"{out['decode_tokens_per_s']:.1f} tokens/s; launches {counted} "
         f"prefills; peak memory {out['peak_gb']:.2f} GB")
+    n_moe = sum(moe for _, moe, _ in layer_plan(cfg))
+    if n_moe:
+        per_call = drops_per_call(torch, calls, n_moe)
+        pre = [d for t, d in per_call if t != serve["slots"]]
+        dec = [d for t, d in per_call if t == serve["slots"]]
+        if len(pre) != st["prefills"] or len(dec) != st["decode_steps"]:
+            raise AssertionError(f"{arch}: {len(per_call)} MoE calls for "
+                                 f"{st['prefills']} prefills and "
+                                 f"{st['decode_steps']} decode steps")
+        out["dropped"] = dict(per_prefill=pre, per_decode_step=dec,
+                              choices_per_prefill=[
+                                  n * cfg.top_k * n_moe for n in lens])
+        log(f"serve: {arch} MoE choices dropped past capacity (capacity "
+            f"factor {get_arch(arch).capacity_factor}, {n_moe} MoE layers): "
+            f"per prefill {pre} of {out['dropped']['choices_per_prefill']}; "
+            f"per decode step at {serve['slots']} slots (idle ones "
+            f"included) {dec}")
     out["model"], out["params"] = res["model"], res["params"]
     return out
 
@@ -1914,8 +2135,15 @@ def serve_vs_plain(torch, model, params, n: int):
     3e-2, the reduced-model bound of ``tests/test_kernels_integration.py``,
     but not enforced: over 26 layers at d_model 2304 two bf16 paths that
     round at other places drift further apart than over 4 layers at
-    d_model 64 (PERF.md). Returns the f32 model and weights for the
-    next phase.
+    d_model 64 (PERF.md). In an MoE model it also prints, per MoE layer,
+    the tokens whose set of experts differs between the two paths in each
+    type (a near tie that the paths' rounding breaks either way); in f32
+    each path routes on its own, but in bf16 the paths route many tokens
+    differently, and a choice that moves moves who is dropped past
+    capacity after it, so check (2) runs the plain paths (bf16 and the f32
+    truth) with the bf16 kernel path's routing (``moe_routes(replay=)``)
+    and prints the distances of the paths routing on their own beside it.
+    Returns the f32 model and weights for the next phase.
     """
     import dataclasses
 
@@ -1935,29 +2163,57 @@ def serve_vs_plain(torch, model, params, n: int):
                           "cuda")
     params32 = LM(model32.cfg, model32.device)
     params32.load_state_dict(params.state_dict())
-    logits = {}
+    logits, routes = {}, {}
     with torch.inference_mode():
         for name, m, p in (("bf16", model, params), ("f32", model32,
                                                      params32)):
-            logits[name, "kernel"], _ = m.prefill(p, m.init_cache(1, n), batch)
-            with attention_impl("xla"), recurrence_impl("plain"):
+            with moe_routes(experts=True) as routes[name, "kernel"]:
+                logits[name, "kernel"], _ = m.prefill(p, m.init_cache(1, n),
+                                                      batch)
+            with attention_impl("xla"), recurrence_impl("plain"), \
+                    moe_routes(experts=True) as routes[name, "plain"]:
                 logits[name, "plain"], _ = m.prefill(p, m.init_cache(1, n),
                                                      batch)
+        flips = {name: experts_differ(routes[name, "kernel"],
+                                      routes[name, "plain"])
+                 for name in ("bf16", "f32")}
+        if routes["bf16", "kernel"]:
+            # the plain paths once more, with the bf16 kernel path's routing
+            for name, m, p in (("bf16", model, params),
+                               ("f32", model32, params32)):
+                with attention_impl("xla"), recurrence_impl("plain"), \
+                        moe_routes(replay=routes["bf16", "kernel"]):
+                    logits[name, "plain, routed alike"], _ = m.prefill(
+                        p, m.init_cache(1, n), batch)
     truth = logits["f32", "plain"]
 
     def dist(a, b):
         return float((a - b).abs().max())
 
     kern, plain = logits["bf16", "kernel"], logits["bf16", "plain"]
+    moe = ("f32", "plain, routed alike") in logits
+    if moe:
+        # an MoE model's bf16 paths break near ties, and with them who is
+        # dropped past capacity, in other ways (the counts printed below):
+        # the accuracy rule compares the paths with one routing
+        truth = logits["f32", "plain, routed alike"]
+        plain = logits["bf16", "plain, routed alike"]
     tol = 3e-2 + 3e-2 * plain.abs()
     out = dict(n=n, max_abs_logit=float(truth.abs().max()),
                bf16_kernel_vs_plain=dist(kern, plain),
                bf16_outside_3e2=int(((kern - plain).abs() > tol).sum()),
-               f32_kernel_vs_plain=dist(logits["f32", "kernel"], truth),
+               f32_kernel_vs_plain=dist(logits["f32", "kernel"],
+                                        logits["f32", "plain"]),
                bf16_kernel_vs_f32=dist(kern, truth),
                bf16_plain_vs_f32=dist(plain, truth),
                same_argmax=bool(kern.argmax() == plain.argmax()
-                                == truth.argmax()))
+                                == truth.argmax()),
+               expert_sets_differ=flips if moe else None)
+    if moe:
+        out["natural_routing"] = dict(
+            bf16_kernel_vs_f32=dist(kern, logits["f32", "plain"]),
+            bf16_plain_vs_f32=dist(logits["bf16", "plain"],
+                                   logits["f32", "plain"]))
     log(f"serve vs plain: {model.cfg.name}, {n}-token prompt, last-position "
         f"logits (max "
         f"|logit| {out['max_abs_logit']:.4g}): f32 kernel vs plain max |err| "
@@ -1967,8 +2223,17 @@ def serve_vs_plain(torch, model, params, n: int):
         f"bf16 kernel vs plain {out['bf16_kernel_vs_plain']:.4g}, "
         f"{out['bf16_outside_3e2']} of {plain.numel()} outside rtol = atol "
         f"= 3e-2 (reported); same argmax {out['same_argmax']}")
-    torch.testing.assert_close(logits["f32", "kernel"], truth, rtol=1e-3,
-                               atol=1e-3)
+    if moe:
+        nat = out["natural_routing"]
+        log(f"serve vs plain: {model.cfg.name}, tokens (of {n}) whose expert "
+            f"set differs between the kernel and plain paths, per MoE layer: "
+            f"f32 {flips['f32']}, bf16 {flips['bf16']}; the bf16 distances "
+            f"above are with the plain paths (bf16 and f32) routed as the "
+            f"bf16 kernel path; each path routing on its own: bf16 kernel vs "
+            f"f32 {nat['bf16_kernel_vs_f32']:.4g}, bf16 plain vs f32 "
+            f"{nat['bf16_plain_vs_f32']:.4g} (reported)")
+    torch.testing.assert_close(logits["f32", "kernel"], logits["f32", "plain"],
+                               rtol=1e-3, atol=1e-3)
     if out["bf16_kernel_vs_f32"] > 1.25 * out["bf16_plain_vs_f32"]:
         raise AssertionError(f"{model.cfg.name}: the bf16 kernel path is "
                              "further from the f32 logits than 1.25x the "
@@ -1976,9 +2241,12 @@ def serve_vs_plain(torch, model, params, n: int):
     return out, model32, params32
 
 
-def engine_vs_greedy(torch, model, params) -> dict:
+def engine_vs_greedy(torch, model, params, n_requests: int = 6) -> dict:
     """The model at full width in f32: the engine's tokens (more requests
-    than slots) equal per-request greedy prefill and decode."""
+    than slots, or as many) equal per-request greedy prefill and decode.
+    In an MoE model this holds while no choice is dropped past capacity,
+    which couples a call's tokens: the choices dropped in the engine's run
+    are printed (prefills on one row, as greedy's, drop alike)."""
     import numpy as np
 
     from repro_torch.config.base import ServeConfig
@@ -1987,7 +2255,7 @@ def engine_vs_greedy(torch, model, params) -> dict:
     cfg = model.cfg
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, 40))
-               for _ in range(6)]
+               for _ in range(n_requests)]
     n_new, max_seq = 8, 64
     refs, margins = [], []
     with torch.inference_mode():
@@ -2010,7 +2278,10 @@ def engine_vs_greedy(torch, model, params) -> dict:
             margins.append(marg)
     eng = ServeEngine(model, params, ServeConfig(max_batch=4, max_seq=max_seq))
     rids = [eng.submit(pr, max_new=n_new) for pr in prompts]
-    results = eng.run()
+    with moe_routes() as calls:
+        results = eng.run()
+    dropped = (int(torch.stack([c["dropped"] for c in calls]).sum())
+               if calls else None)
     for rid, ref_toks, marg in zip(rids, refs, margins):
         got = results[rid]
         if got != ref_toks:
@@ -2021,10 +2292,53 @@ def engine_vs_greedy(torch, model, params) -> dict:
                 f"{got} vs {ref_toks}; the reference's top-2 logit margin "
                 f"there is {marg[step]:.3g}")
     out = dict(requests=len(prompts), slots=4, new_tokens=n_new,
-               min_margin=min(min(m) for m in margins))
+               min_margin=min(min(m) for m in margins), dropped=dropped)
+    drops = ("" if dropped is None else
+             f"; MoE choices dropped past capacity in the engine's run: "
+             f"{dropped}")
     log(f"engine = greedy: {cfg.name} full width f32, {len(prompts)} requests "
         f"through 4 slots, {n_new} tokens each: equal (smallest top-2 logit "
-        f"margin {out['min_margin']:.3g})")
+        f"margin {out['min_margin']:.3g}){drops}")
+    return out
+
+
+def deepseek_phase(torch, fa) -> dict:
+    """Phase 11 for deepseek-v2-236b at its published widths cut to
+    ``DEEPSEEK["n_layers"]`` layers (the dense first layer of width 12288
+    and one MoE layer of 160 experts and 2 shared; MLA with 128 heads,
+    q/k 192 padded to 256): the model built through the registry with
+    seeded weights, and ``serve_vs_plain`` at ``DEEPSEEK["prompt"]``
+    tokens. The flash kernel must launch once per layer in each of the
+    phase's two kernel-route prefills (bf16 and f32)."""
+    import dataclasses
+
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(DEEPSEEK["arch"]),
+                              n_layers=DEEPSEEK["n_layers"])
+    model = build_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    fa.reset_launches()
+    out, model32, params32 = serve_vs_plain(torch, model, params,
+                                            DEEPSEEK["prompt"])
+    launches = fa.launches["flash_attention"]
+    if launches != 2 * cfg.n_layers:
+        raise AssertionError(f"deepseek: flash_attention launched {launches} "
+                             f"times in 2 kernel prefills of {cfg.n_layers} "
+                             "layers")
+    del model, params, model32, params32
+    torch.cuda.empty_cache()
+    out.update(n_layers=cfg.n_layers, params=n_params, launches=launches,
+               phase_s=time.perf_counter() - t0)
+    log(f"serve vs plain: {cfg.name} cut to {cfg.n_layers} layers at its "
+        f"published widths ({n_params} parameters): flash_attention "
+        f"launched {launches} = {cfg.n_layers} x 2 prefills; phase "
+        f"{out['phase_s']:.1f} s")
     return out
 
 
@@ -2202,6 +2516,7 @@ def main() -> None:
 
     # 8. flash attention against its plain version
     fl_results = flash_phase(torch, fa, ref)
+    fl_results += mla_flash_phase(torch, fa, ref)
     margin = flash_margin(torch, fa, ref)
     if margin["crossed"]:
         raise AssertionError(f"flash_attention bf16: {margin['crossed']} of "
@@ -2226,12 +2541,35 @@ def main() -> None:
         del model32, params32
         torch.cuda.empty_cache()
         served[arch] = out
+    # the same for the MoE and MLA families, shorter (SERVE_MOE_MLA), then
+    # deepseek-v2-236b cut to 2 layers through phase 11
+    t_new = time.perf_counter()
+    for arch in MOE_MLA_ARCHS:
+        t0 = time.perf_counter()
+        out = serve_phase(torch, arch, (fa, rg, rw), SERVE_MOE_MLA)
+        model, params = out.pop("model"), out.pop("params")
+        out["vs_plain"], model32, params32 = serve_vs_plain(
+            torch, model, params, MOE_MLA_PROMPT)
+        out["profile"] = serve_profile(torch, model, params, MOE_MLA_PROMPT)
+        del model, params
+        torch.cuda.empty_cache()
+        out["engine_vs_greedy"] = engine_vs_greedy(
+            torch, model32, params32, ENGINE_REQUESTS[arch])
+        del model32, params32
+        torch.cuda.empty_cache()
+        out["phase_s"] = time.perf_counter() - t0
+        log(f"serve: {arch}, phases 10-13 in {out['phase_s']:.1f} s")
+        served[arch] = out
+    deepseek = deepseek_phase(torch, fa)
+    log(f"serve: the MoE and MLA families (phases 10-13 and deepseek's 11) "
+        f"in {time.perf_counter() - t_new:.1f} s")
 
     def launched(name):
         return sum(out["launches"][name] for out in served.values())
 
     main_fl = next(r for r in fl_results if r["dtype"] == "bfloat16" and
-                   r["S"] == 6000 and r["window"] == 0 and r["D"] == 256)
+                   r["S"] == 6000 and r["window"] == 0 and r["D"] == 256
+                   and "D_qk" not in r)
     main_rg = next(r for r in rg_results if r["dtype"] == "float32" and
                    r["S"] == 6000 and r["B"] == 1 and r["decay"] == "mild")
     main_rw = next(r for r in rw_results if r["dtype"] == "float32" and
@@ -2242,13 +2580,15 @@ def main() -> None:
         launches=launched("flash_attention"),
         launches_by_path={**{arch: out["launches"]["flash_attention"]
                              for arch, out in served.items()},
+                          "deepseek-v2-236b (2 layers, phase 11)":
+                              deepseek["launches"],
                           "train": train["launches"]["flash_attention"]},
         max_abs_err=max(r["max_abs_err"] for r in fl_results),
         ms=main_fl["ms"], plain_ms=main_fl["plain_ms"],
         bound_ms=main_fl["bound_ms"], bound_by=main_fl["bound_by"],
         library=main_fl["library"], library_ms=main_fl["library_ms"],
         shapes=fl_results, bf16_margin=margin,
-        serve=served["gemma2-2b"]))
+        serve=served["gemma2-2b"], deepseek_vs_plain=deepseek))
     for name, source, replaces, main_row, rows, arch in (
             ("rglru_linear_scan", RGLRU_SOURCE,
              "src/repro/kernels/rglru.py:74", main_rg, rg_results,

@@ -148,7 +148,8 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device) -> LM:
     The layers are unstacked as :func:`_unstack` says. Values are cast to
     each parameter's type: ``cfg.dtype``, except the leaves the reference
     keeps in f32 in any model (the RG-LRU's ``mixer.lru.a_param``; the
-    time mix's ``w_base``, ``u``, ``ln_x_scale`` and ``ln_x_bias``).
+    time mix's ``w_base``, ``u``, ``ln_x_scale`` and ``ln_x_bias``; the
+    MoE's ``ffn.router``).
     Every parameter must be present and no other.
     """
     state = _unstack(tree, cfg)

@@ -110,8 +110,8 @@ def ref_idm_accel(pos, vel, lane, active, v0, T, a_max, b_comf, s0, veh_len):
 
 
 def ref_attention(q, k, v, causal=True, window=0, softcap=0.0, scale=None):
-    """``q [B, Sq, H, D]``, ``k``/``v [B, Sk, K, D]`` → ``[B, Sq, H, D]`` in
-    ``v``'s type. Query ``i`` sits at position ``i + Sk - Sq``; masked
+    """``q [B, Sq, H, D]``, ``k [B, Sk, K, D]``, ``v [B, Sk, K, Dv]`` →
+    ``[B, Sq, H, Dv]`` in ``v``'s type. Query ``i`` sits at position ``i + Sk - Sq``; masked
     scores take the finite ``NEG_INF``."""
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
@@ -132,7 +132,7 @@ def ref_attention(q, k, v, causal=True, window=0, softcap=0.0, scale=None):
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
-    return o.reshape(b, sq, h, d)
+    return o.reshape(b, sq, h, v.shape[-1])
 
 
 def ref_rglru(a, x, h0):

@@ -5,7 +5,7 @@ Trains an LM on the card (``--device cpu`` on the CPU) through the
 and restart, on sim-token or synthetic data. As the reference launcher it
 trains the architecture's reduced variant unless ``--full-size``. Flags:
 
-``--arch --full-size --steps --batch --seq --lr --data sim|synthetic
+``--arch --reduced --full-size --steps --batch --seq --lr --data sim|synthetic
 --shard-dir --ckpt-dir --microbatches --remat --d-model --n-layers``
     as the reference launcher;
 ``--device``
@@ -35,6 +35,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train",
                                  allow_abbrev=False)
     ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list_archs())
+    ap.add_argument("--reduced", action="store_true", default=True,
+                    help="train the reduced() variant (the default)")
     ap.add_argument("--full-size", dest="reduced", action="store_false",
                     help="train the published configuration, not reduced()")
     ap.add_argument("--steps", type=int, default=200)

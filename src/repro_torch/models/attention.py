@@ -1,7 +1,7 @@
 """Attention: GQA with RoPE, sliding windows, logit softcaps, and KV caches
-(ring-buffered for windowed layers). Port of the GQA part of
-``repro/models/attention.py``; MLA and cross attention come with their
-families (ROADMAP queue 1).
+(ring-buffered for windowed layers); MLA with its latent cache and
+absorbed decode. Port of ``repro/models/attention.py``; cross attention
+comes with its family (ROADMAP queue 1).
 
 Layouts as the reference: activations ``[B, S, D]``; per-head tensors
 ``[B, S, H, hd]``; KV caches ``[B, S_cache, K, hd]`` with an entry-position
@@ -18,6 +18,15 @@ launches the CUDA kernel on a CUDA tensor and runs its plain version on a
 CPU tensor. ``attention_impl("xla")`` selects the plain path of the
 reference's default (``sdpa``, tiled ``flash_xla`` above 2048 tokens)
 explicitly; tests and the smoke script's comparison use it.
+
+MLA's full-sequence attention (:func:`mla_attention`) has q/k head dims
+``dn + dr`` and v head dim ``dv`` that the kernel does not take (one D
+from :data:`~repro_torch.kernels.flash_attention.HEAD_DIMS` for all
+three). On the kernel route q, k and v are zero-padded to the smallest
+such D that holds them, which leaves every score and every output column
+unchanged, and the context is sliced back to ``dv``; a D past the largest
+raises. MLA's absorbed decode is plain PyTorch on both devices, as the
+reference computes it outside any kernel.
 """
 
 from __future__ import annotations
@@ -26,10 +35,11 @@ import contextlib
 from contextvars import ContextVar
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
 from repro_torch.models.common import (
     Norm,
     apply_rope,
@@ -320,4 +330,167 @@ def attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         valid &= age < cfg.window
     ctx = sdpa(q, ck, cv, valid[:, None, :], cfg.head_dim**-0.5,
                cfg.attn_logit_softcap)
+    return _out(ctx, p.wo), cache
+
+
+# --------------------------------------------------------------------------
+# MLA — multi-head latent attention (deepseek-v2, minicpm3)
+# --------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """``q_a``, ``q_a_norm``, ``q_b`` (with a q LoRA rank) or ``q_proj``;
+    ``kv_a``, ``kv_a_norm``, ``kv_b``; ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, device) -> None:
+        super().__init__()
+        dt = cdtype(cfg)
+        d, h = cfg.d_model, cfg.n_heads
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        if cfg.q_lora_rank > 0:
+            self.q_a = param((d, cfg.q_lora_rank), dt, device)
+            self.q_a_norm = Norm(cfg, cfg.q_lora_rank, device)
+            self.q_b = param((cfg.q_lora_rank, h, dn + dr), dt, device)
+        else:
+            self.q_proj = param((d, h, dn + dr), dt, device)
+        self.kv_a = param((d, cfg.kv_lora_rank + dr), dt, device)
+        self.kv_a_norm = Norm(cfg, cfg.kv_lora_rank, device)
+        self.kv_b = param((cfg.kv_lora_rank, h, dn + dv), dt, device)
+        self.wo = param((h, dv, d), dt, device)
+
+    def reset_parameters(self, generator) -> None:
+        d = self.kv_a.shape[0]
+        if hasattr(self, "q_a"):
+            dense_init(self.q_a, d, generator)
+            self.q_a_norm.reset_parameters()
+            dense_init(self.q_b, self.q_b.shape[0], generator)
+        else:
+            dense_init(self.q_proj, d, generator)
+        dense_init(self.kv_a, d, generator)
+        self.kv_a_norm.reset_parameters()
+        dense_init(self.kv_b, self.kv_b.shape[0], generator)
+        h, dv, _ = self.wo.shape
+        dense_init(self.wo, h * dv, generator)
+
+
+def _mla_q(cfg: ModelConfig, p: MLA, x, positions):
+    dn = cfg.qk_nope_head_dim
+    if cfg.q_lora_rank > 0:
+        qa = rmsnorm(p.q_a_norm.scale, x @ p.q_a, cfg.norm_eps)
+        q = _proj(qa, p.q_b)
+    else:
+        q = _proj(x, p.q_proj)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(cfg: ModelConfig, p: MLA, x, positions):
+    """The latent ``c [B, S, L]`` and the shared rope key ``[B, S, dr]``."""
+    ckv = x @ p.kv_a
+    c, k_rope = ckv[..., :cfg.kv_lora_rank], ckv[..., cfg.kv_lora_rank:]
+    c = rmsnorm(p.kv_a_norm.scale, c, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return c, k_rope[:, :, 0, :]
+
+
+def mla_head_dim(d: int) -> int:
+    """The smallest kernel head dim that holds ``d`` columns."""
+    for hd in HEAD_DIMS:
+        if hd >= d:
+            return hd
+    raise ValueError(f"MLA head dims need {d} columns; the flash kernel "
+                     f"takes at most {HEAD_DIMS[-1]}")
+
+
+def mla_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Causal attention of ``q``/``k [B, S, H, dn + dr]`` and ``v
+    [B, S, H, dv]``. The kernel route zero-pads all three to one head dim
+    the kernel takes and slices the context back to ``dv``; under
+    ``attention_impl("xla")`` the plain path runs on the unpadded
+    tensors."""
+    if _ATTN_IMPL.get() != "kernel":
+        return full_attention(q, k, v, causal=True, window=0, scale=scale)
+    dv = v.shape[-1]
+    hd = mla_head_dim(max(q.shape[-1], dv))
+    q, k, v = (F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
+    ctx = flash_attention(q, k, v, causal=True, window=0, softcap=0.0,
+                          scale=scale)
+    return ctx[..., :dv]
+
+
+def _mla_seq(cfg: ModelConfig, p: MLA, x, positions):
+    """Full-sequence MLA (the naive expansion); returns (y, c, k_rope)."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c, k_rope = _mla_ckv(cfg, p, x, positions)
+    kv = _proj(c, p.kv_b)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    h = k_nope.shape[2]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    ctx = mla_attention(q, k, v, scale=(dn + dr) ** -0.5)
+    return _out(ctx, p.wo), c, k_rope
+
+
+def mla_apply(cfg: ModelConfig, p: MLA, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence MLA (train / prefill compute)."""
+    return _mla_seq(cfg, p, x, positions)[0]
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
+                   device) -> dict[str, torch.Tensor]:
+    dt = cdtype(cfg)
+    return {
+        "c": torch.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dt,
+                         device=device),
+        "k_rope": torch.zeros((batch, max_seq, cfg.qk_rope_head_dim),
+                              dtype=dt, device=device),
+        "pos": torch.full((batch, max_seq), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_prefill(cfg: ModelConfig, p: MLA, x: torch.Tensor,
+                positions: torch.Tensor, cache: dict):
+    """Full-seq MLA + the prompt's latents written into the cache in
+    place."""
+    y, c, k_rope = _mla_seq(cfg, p, x, positions)
+    s = x.shape[1]
+    cache["c"][:, :s] = c
+    cache["k_rope"][:, :s] = k_rope
+    cache["pos"][:, :s] = positions.to(torch.int32)
+    return y, cache
+
+
+def mla_decode(cfg: ModelConfig, p: MLA, x: torch.Tensor, pos: torch.Tensor,
+               cache: dict):
+    """Absorbed-matrix MLA decode against the latent cache (written in
+    place at ``pos``; MLA has no ring). A write at ``pos >= max_seq`` is
+    dropped, as the reference's scatter drops it."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    b = x.shape[0]
+    q_nope, q_rope = _mla_q(cfg, p, x, pos[:, None])     # [B,1,H,dn],[B,1,H,dr]
+    c_new, kr_new = _mla_ckv(cfg, p, x, pos[:, None])    # [B,1,L],[B,1,dr]
+
+    cc, ckr, cp = cache["c"], cache["k_rope"], cache["pos"]
+    bi = torch.arange(b, device=x.device)
+    inside = ((pos >= 0) & (pos < cc.shape[1]))[:, None]
+    slot = pos.clamp(0, cc.shape[1] - 1).long()
+    cc[bi, slot] = torch.where(inside, c_new[:, 0], cc[bi, slot])
+    ckr[bi, slot] = torch.where(inside, kr_new[:, 0], ckr[bi, slot])
+    cp[bi, slot] = torch.where(inside[:, 0], pos.to(torch.int32), cp[bi, slot])
+
+    w_uk = p.kv_b[..., :dn]   # [L, H, dn]
+    w_uv = p.kv_b[..., dn:]   # [L, H, dv]
+    q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope, w_uk)
+    scores = (
+        torch.einsum("bqhl,bsl->bhqs", q_abs.float(), cc.float())
+        + torch.einsum("bqhd,bsd->bhqs", q_rope.float(), ckr.float())
+    ) * (dn + dr) ** -0.5
+    valid = (cp >= 0) & (cp <= pos[:, None])
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    prob = torch.softmax(scores, dim=-1).to(cc.dtype)
+    ctx_c = torch.einsum("bhqs,bsl->bqhl", prob, cc)
+    ctx = torch.einsum("bqhl,lhv->bqhv", ctx_c, w_uv)
     return _out(ctx, p.wo), cache

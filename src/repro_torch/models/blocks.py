@@ -2,14 +2,16 @@
 the port serves (port of ``repro/models/blocks.py``).
 
 Layer kinds (``ModelConfig.layer_pattern`` entries):
-- "global"    — full causal attention + FFN
-- "local"     — sliding-window attention + FFN
+- "global"    — full causal attention (MLA with ``cfg.use_mla``) + FFN/MoE
+- "local"     — sliding-window attention + FFN/MoE
 - "recurrent" — Griffin RG-LRU block + FFN
 - "rwkv"      — RWKV-6 time mix + channel mix (no FFN, no post-norms)
 
 All blocks are pre-norm residual; gemma2 additionally applies post-norms
-(``cfg.post_norms``). Caches are written in place. MLA and MoE come with
-their families (ROADMAP queue 1) and raise ``NotImplementedError``.
+(``cfg.post_norms``). MoE-ness is decided by the stack
+(:func:`repro_torch.models.lm.stack_plan`), so a block is built either
+dense or MoE; ``block_apply`` returns the MoE's aux loss, prefill and
+decode drop it. Caches are written in place.
 """
 
 from __future__ import annotations
@@ -19,14 +21,19 @@ from torch import nn
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.attention import (
+    MLA,
     Attention,
     attn_apply,
     attn_decode,
     attn_prefill,
     kv_cache_init,
+    mla_apply,
+    mla_cache_init,
+    mla_decode,
+    mla_prefill,
 )
 from repro_torch.models.common import Norm, norm
-from repro_torch.models.ffn import FFN, ffn_apply
+from repro_torch.models.ffn import FFN, MoE, ffn_apply, moe_apply
 from repro_torch.models.recurrent import (
     ChannelMix,
     RecurrentBlock,
@@ -46,27 +53,24 @@ from repro_torch.models.recurrent import (
 KINDS = ("global", "local", "recurrent", "rwkv")
 
 
-def _check_supported(cfg: ModelConfig, kind: str, moe: bool) -> None:
+def _check_kind(kind: str) -> None:
     if kind not in KINDS:
         raise ValueError(f"unknown layer kind {kind!r}; expected one of "
                          f"{KINDS}")
-    if cfg.use_mla or moe:
-        raise NotImplementedError(
-            "MLA and MoE layers are not ported yet (ROADMAP queue 1, item "
-            "'MLA/MoE families')")
 
 
 class Block(nn.Module):
     """One layer's parameters: ``norm1``, ``norm2`` and either
-    ``time_mix``/``channel_mix`` (rwkv) or ``mixer`` (attention or the
-    Griffin block), ``ffn`` and, with ``cfg.post_norms``,
+    ``time_mix``/``channel_mix`` (rwkv) or ``mixer`` (attention, MLA or the
+    Griffin block), ``ffn`` (dense or MoE) and, with ``cfg.post_norms``,
     ``post_norm1``/``post_norm2``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device, moe: bool = False,
                  d_ff: int | None = None) -> None:
         super().__init__()
-        _check_supported(cfg, kind, moe)
+        _check_kind(kind)
         self.kind = kind
+        self.moe = moe
         d = cfg.d_model
         self.norm1 = Norm(cfg, d, device)
         self.norm2 = Norm(cfg, d, device)
@@ -74,9 +78,13 @@ class Block(nn.Module):
             self.time_mix = TimeMix(cfg, device)
             self.channel_mix = ChannelMix(cfg, device)
             return
-        self.mixer = (RecurrentBlock(cfg, device) if kind == "recurrent"
-                      else Attention(cfg, device))
-        self.ffn = FFN(cfg, device, d_ff=d_ff)
+        if kind == "recurrent":
+            self.mixer = RecurrentBlock(cfg, device)
+        elif cfg.use_mla:
+            self.mixer = MLA(cfg, device)
+        else:
+            self.mixer = Attention(cfg, device)
+        self.ffn = MoE(cfg, device) if moe else FFN(cfg, device, d_ff=d_ff)
         if cfg.post_norms:
             self.post_norm1 = Norm(cfg, d, device)
             self.post_norm2 = Norm(cfg, d, device)
@@ -103,9 +111,15 @@ def _residual(cfg: ModelConfig, p: Block, x, sub, post: str):
     return x + sub
 
 
-def _ffn_half(cfg: ModelConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
+def _ffn_half(cfg: ModelConfig, p: Block, x: torch.Tensor):
+    """The FFN (or MoE) half of a block: (x, moe_aux or None)."""
     h = norm(cfg, p.norm2, x)
-    return _residual(cfg, p, x, ffn_apply(cfg, p.ffn, h), "post_norm2")
+    aux = None
+    if p.moe:
+        sub, aux = moe_apply(cfg, p.ffn, h)
+    else:
+        sub = ffn_apply(cfg, p.ffn, h)
+    return _residual(cfg, p, x, sub, "post_norm2"), aux
 
 
 def block_apply(cfg: ModelConfig, p: Block, x: torch.Tensor,
@@ -119,19 +133,24 @@ def block_apply(cfg: ModelConfig, p: Block, x: torch.Tensor,
         return x + rwkv_channel_mix_apply(cfg, p.channel_mix, h), aux
     if p.kind == "recurrent":
         sub = recurrent_block_apply(cfg, p.mixer, h)
+    elif cfg.use_mla:
+        sub = mla_apply(cfg, p.mixer, h, positions)
     else:
         sub = attn_apply(cfg, p.mixer, h, positions, p.kind, causal=causal)
     x = _residual(cfg, p, x, sub, "post_norm1")
-    return _ffn_half(cfg, p, x), aux
+    x, moe_aux = _ffn_half(cfg, p, x)
+    return x, aux if moe_aux is None else moe_aux
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      device) -> dict:
-    _check_supported(cfg, kind, False)
+    _check_kind(kind)
     if kind == "rwkv":
         return rwkv_cache_init(cfg, batch, device)
     if kind == "recurrent":
         return recurrent_cache_init(cfg, batch, device)
+    if cfg.use_mla:
+        return mla_cache_init(cfg, batch, max_seq, device)
     return kv_cache_init(cfg, batch, max_seq, kind, device)
 
 
@@ -148,10 +167,12 @@ def block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor,
         return x, _rwkv_state_from_prefill(cache, s_final, w, h, h2)
     if p.kind == "recurrent":
         sub, cache = _recurrent_prefill(cfg, p.mixer, h, cache)
+    elif cfg.use_mla:
+        sub, cache = mla_prefill(cfg, p.mixer, h, positions, cache)
     else:
         sub, cache = attn_prefill(cfg, p.mixer, h, positions, cache, p.kind)
     x = _residual(cfg, p, x, sub, "post_norm1")
-    return _ffn_half(cfg, p, x), cache
+    return _ffn_half(cfg, p, x)[0], cache
 
 
 def block_decode(cfg: ModelConfig, p: Block, x: torch.Tensor,
@@ -166,10 +187,12 @@ def block_decode(cfg: ModelConfig, p: Block, x: torch.Tensor,
         return x + y, cache
     if p.kind == "recurrent":
         sub, cache = recurrent_block_step(cfg, p.mixer, h, cache)
+    elif cfg.use_mla:
+        sub, cache = mla_decode(cfg, p.mixer, h, pos, cache)
     else:
         sub, cache = attn_decode(cfg, p.mixer, h, pos, cache, p.kind)
     x = _residual(cfg, p, x, sub, "post_norm1")
-    return _ffn_half(cfg, p, x), cache
+    return _ffn_half(cfg, p, x)[0], cache
 
 
 # ---- prefill state helpers for recurrent kinds -----------------------------

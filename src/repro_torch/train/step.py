@@ -43,14 +43,16 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def make_loss_fn(model: Model, tc: TrainConfig) -> Callable:
-    if model.cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{model.cfg.name}: the MoE aux loss comes with the MoE families "
-            "(ROADMAP queue 1 item 7)")
+    """(params, batch) → (loss, metrics): the cross entropy (with the
+    z-loss where set) plus, in an MoE model, ``moe_aux_weight`` times the
+    layers' summed load-balance aux loss, reported as ``moe_aux``."""
 
     def loss_fn(params: LM, batch: dict):
-        logits, _ = model.apply(params, batch, remat=tc.remat)
+        logits, aux = model.apply(params, batch, remat=tc.remat)
         loss, metrics = cross_entropy_loss(logits, batch["labels"], tc.z_loss)
+        if model.cfg.n_experts > 0:
+            loss = loss + tc.moe_aux_weight * aux
+            metrics["moe_aux"] = aux
         metrics["loss"] = loss
         return loss, metrics
 

@@ -2,7 +2,8 @@
 its sweep launcher (plain; recording with checkpoints, a dataset and
 injected faults; two blocks pipelined), its LM batches from that dataset
 and synthetic ones, its train launcher on both, its process controller
-and its serve launcher on the CPU never loads ``jax`` or ``repro``; asking for ``cuda`` without a card
+and its serve launcher on the CPU (every served family, the MoE and MLA
+ones included) never loads ``jax`` or ``repro``; asking for ``cuda`` without a card
 raises instead of falling back to the CPU."""
 
 import json
@@ -58,7 +59,8 @@ sys.argv = ["repro_torch.launch.controller", "--ckpt-dir", "ctl",
             "--poll", "0.1", "--", "--device", "cpu", "--instances", "2",
             "--steps", "10", "--chunk-steps", "10", "--slots", "8"]
 runpy.run_module("repro_torch.launch.controller", run_name="__main__")
-for arch in ("gemma2-2b", "recurrentgemma-2b", "rwkv6-3b"):
+for arch in ("gemma2-2b", "recurrentgemma-2b", "rwkv6-3b", "olmoe-1b-7b",
+             "minicpm3-4b", "deepseek-v2-236b"):
     sys.argv = ["repro_torch.launch.serve", "--device", "cpu", "--arch",
                 arch, "--requests", "2", "--max-new", "3"]
     runpy.run_module("repro_torch.launch.serve", run_name="__main__")
@@ -86,7 +88,11 @@ def test_no_jax_or_reference_imports(tmp_path):
                  "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6",
                  "repro_torch.models.lm", "repro_torch.models.recurrent",
                  "repro_torch.configs.recurrentgemma_2b",
-                 "repro_torch.configs.rwkv6_3b", "repro_torch.serve.engine",
+                 "repro_torch.configs.rwkv6_3b",
+                 "repro_torch.configs.olmoe_1b_7b",
+                 "repro_torch.configs.minicpm3_4b",
+                 "repro_torch.configs.deepseek_v2_236b",
+                 "repro_torch.models.ffn", "repro_torch.serve.engine",
                  "repro_torch.launch.serve", "repro_torch.launch.mesh",
                  "repro_torch.data.sim_dataset", "repro_torch.data.synthetic",
                  "repro_torch.train.optim", "repro_torch.train.step",
@@ -96,7 +102,7 @@ def test_no_jax_or_reference_imports(tmp_path):
     for data in ("synthetic", "sim"):
         assert (tmp_path / f"train_ck_{data}" / "step_000000003"
                 / "manifest.json").exists()
-    assert proc.stdout.count("[serve] completed 2/2 requests") == 3
+    assert proc.stdout.count("[serve] completed 2/2 requests") == 6
     records = json.loads(out.read_text())["records"]
     assert len(records) == 4 and all(r["steps"] == 20 for r in records)
     manifest = json.loads((tmp_path / "ds" / "manifest.json").read_text())
@@ -143,7 +149,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
         sweep_state_from_numpy(SimpleNamespace(trace=None), None)
     with pytest.raises(RuntimeError, match="cuda"):
         serve_launcher.main(["--requests", "1"])
-    for arch in ("gemma2-2b", "recurrentgemma-2b", "rwkv6-3b"):
+    for arch in ("gemma2-2b", "recurrentgemma-2b", "rwkv6-3b", "olmoe-1b-7b",
+                 "minicpm3-4b", "deepseek-v2-236b"):
         with pytest.raises(RuntimeError, match="cuda"):
             build_model(get_arch(arch).reduced())
         with pytest.raises(RuntimeError, match="cuda"):

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card, and the LM stack served through the flash attention, RG-LRU and WKV6
-kernels. Every test here carries the ``cuda`` marker and skips without a
+kernels (the MoE and MLA families included). Every test here carries the ``cuda`` marker and skips without a
 GPU.
 
 This file imports torch and the port only (no JAX), so it also runs on a
@@ -21,7 +21,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import idm, ref
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import rwkv6 as rw
-from repro_torch.models.attention import attention_impl
+from repro_torch.models.attention import attention_impl, mla_attention
 from repro_torch.models.common import f32_product
 from repro_torch.models.recurrent import recurrence_impl
 from repro_torch.models.registry import build_model
@@ -459,6 +459,72 @@ def test_engine_on_the_card_matches_per_request_greedy(cuda):
     results = eng.run()
     assert [results[r] for r in rids] == refs
     assert fa.launches["flash_attention"] == cfg.n_layers * len(prompts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,dqk,dv", [(8, 96, 64), (4, 192, 128)])
+def test_mla_route_pads_to_the_kernel_head_dim(cuda, h, dqk, dv, dtype):
+    """MLA's unequal head dims (minicpm3-4b's q/k 96 and v 64, deepseek-
+    v2's 192 and 128) go through one kernel launch, zero-padded to 128 and
+    256, and the sliced context equals the plain version on the unpadded
+    tensors at the kernel tolerances."""
+    gen = torch.Generator(device=cuda).manual_seed(dqk)
+    q, k = (torch.randn(1, 300, h, dqk, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    v = torch.randn(1, 300, h, dv, generator=gen, device=cuda).to(dtype)
+    before = fa.launches["flash_attention"]
+    got = mla_attention(q, k, v, scale=dqk**-0.5)
+    want = ref.ref_attention(q, k, v, True, 0, 0.0, dqk**-0.5)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == before + 1
+    assert got.shape == (1, 300, h, dv) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,overrides", [
+    ("olmoe-1b-7b", dict(head_dim=64)), ("minicpm3-4b", {}),
+    ("deepseek-v2-236b", {})])
+def test_moe_and_mla_prefill_goes_through_the_kernel(cuda, arch, overrides):
+    """A reduced MoE or MLA model's prefill launches the flash kernel once
+    per layer (MLA's q/k 16 and v 16 padded to 64) and matches the plain
+    path in f32; the engine's tokens equal per-request greedy decoding."""
+    cfg = get_arch(arch).reduced(dtype="float32", **overrides)
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 40))).to(cuda)
+    fa.reset_launches()
+    with torch.inference_mode():
+        got, _ = model.prefill(params, model.init_cache(2, 48),
+                               {"tokens": toks})
+        assert fa.launches["flash_attention"] == cfg.n_layers
+        with attention_impl("xla"):
+            want, _ = model.prefill(params, model.init_cache(2, 48),
+                                    {"tokens": toks})
+    assert fa.launches["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    prompts = [np.random.default_rng(1).integers(0, 256, size=n)
+               for n in (5, 21, 3)]
+    refs = []
+    with torch.inference_mode():
+        for pr in prompts:
+            cache = model.init_cache(1, 48)
+            logits, cache = model.prefill(
+                params, cache, {"tokens": torch.from_numpy(pr[None]).to(cuda)})
+            toks = [int(logits.argmax(-1)[0])]
+            for t in range(3):
+                pos = torch.tensor([len(pr) + t], dtype=torch.int32,
+                                   device=cuda)
+                logits, cache = model.decode(
+                    params, cache, torch.tensor([toks[-1]], device=cuda), pos)
+                toks.append(int(logits.argmax(-1)[0]))
+            refs.append(toks)
+    eng = ServeEngine(model, params, ServeConfig(max_batch=2, max_seq=48))
+    rids = [eng.submit(pr, max_new=4) for pr in prompts]
+    results = eng.run()
+    assert [results[r] for r in rids] == refs
 
 
 # RG-LRU and WKV6: the reference's kernel tolerances (tests/test_kernels.py)

@@ -86,14 +86,18 @@ def test_engine_more_requests_than_slots():
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-2b",
-                                  "recurrentgemma-2b", "rwkv6-3b"])
+                                  "recurrentgemma-2b", "rwkv6-3b",
+                                  "olmoe-1b-7b", "minicpm3-4b",
+                                  "deepseek-v2-236b"])
 def test_engine_tokens_match_reference_engine(arch):
     """Same f32 weights, same prompts (one longer than the reduced window of
     16), 4 requests through 2 slots: the port's engine emits the reference
     engine's tokens. The reference decodes once more before it checks a
     request's budget, so ``max_new=1`` returns two tokens; the port keeps
     that behaviour (ROADMAP queue 3). Slots are recycled after a longer
-    request, so a recurrent state left behind would show."""
+    request, so a recurrent state left behind would show. In the MoE archs
+    a decode step's capacity counts both slots, idle or not, and a prefill's
+    the prompt's tokens, in both engines."""
     overrides = dict(SMALL, vocab_size=256) if arch == "qwen1.5-0.5b" else \
         dict(dtype="float32")
     jm = jax_build(jax_arch(arch).reduced(**overrides))
@@ -126,6 +130,41 @@ def test_serve_launcher_on_cpu(capsys):
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
 def test_serve_launcher_serves_recurrent_archs_on_cpu(arch, capsys):
+    res = launcher.main(["--device", "cpu", "--arch", arch, "--requests", "3",
+                         "--slots", "2", "--max-new", "4"])
+    assert sorted(res["results"]) == [0, 1, 2]
+    assert all(len(v) == 4 for v in res["results"].values())
+    assert res["model"].cfg.name == f"{arch}-smoke"
+    assert "[serve] completed 3/3 requests" in capsys.readouterr().out
+
+
+def test_recycled_mla_slot_keeps_nothing():
+    """An MLA slot recycled after a long request holds exactly the latent
+    cache a fresh prefill of the next prompt gives: its ``pos`` entries past
+    the new prompt are -1 again, so no old latent is attended to."""
+    cfg = get_arch("minicpm3-4b").reduced(dtype="float32")
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(2))
+    eng = ServeEngine(model, params, ServeConfig(max_batch=1, max_seq=64))
+    rng = np.random.default_rng(5)
+    eng.submit(rng.integers(0, 256, size=30), max_new=3)
+    eng.run()
+    short = rng.integers(0, 256, size=4)
+    eng.submit(short, max_new=1)
+    with torch.inference_mode():
+        eng._admit()
+        fresh = model.init_cache(1, 64)
+        model.prefill(params, fresh, {"tokens": torch.from_numpy(short[None])})
+    for pool, one in zip(eng.cache, fresh):
+        assert set(pool) == {"c", "k_rope", "pos"}
+        assert pool["pos"][0].tolist() == [0, 1, 2, 3] + [-1] * 60
+        for name in pool:
+            assert torch.equal(pool[name], one[name]), name
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "minicpm3-4b",
+                                  "deepseek-v2-236b"])
+def test_serve_launcher_serves_moe_and_mla_archs_on_cpu(arch, capsys):
     res = launcher.main(["--device", "cpu", "--arch", arch, "--requests", "3",
                          "--slots", "2", "--max-new", "4"])
     assert sorted(res["results"]) == [0, 1, 2]

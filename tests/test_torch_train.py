@@ -306,10 +306,20 @@ def test_unported_batches_and_losses_raise():
         _split_microbatches(batch, 3)
     with pytest.raises(NotImplementedError, match="item 8"):
         _split_microbatches(dict(batch, mrope_pos=batch["tokens"]), 2)
-    moe = build_model(get_arch("qwen1.5-0.5b").reduced(n_experts=4, top_k=2),
-                      "cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_loss_fn(moe, TrainConfig())
+    # the MoE loss adds moe_aux_weight times the layers' aux loss (it
+    # raised before the MoE families were ported)
+    moe = build_model(get_arch("olmoe-1b-7b").reduced(dtype="float32"), "cpu")
+    params = _init(moe)
+    toks = torch.randint(0, moe.cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    mb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    logits, aux = moe.apply(params, mb)
+    ce, _ = cross_entropy_loss(logits, mb["labels"])
+    loss, metrics = make_loss_fn(moe, TrainConfig(moe_aux_weight=0.5))(
+        params, mb)
+    assert float(aux) > 0 and sorted(metrics) == ["ce", "loss", "moe_aux"]
+    assert float(metrics["moe_aux"]) == float(aux)
+    torch.testing.assert_close(loss, ce + 0.5 * aux, rtol=1e-6, atol=0)
 
 
 @settings(max_examples=10, deadline=None)

@@ -72,7 +72,8 @@ from repro_torch.models.registry import build_model
 from repro_torch.train import adamw_init, adamw_update, make_train_step
 from repro_torch.train.step import make_loss_fn
 
-ARCHS = ["qwen1.5-0.5b", "gemma2-2b", "recurrentgemma-2b", "rwkv6-3b"]
+ARCHS = ["qwen1.5-0.5b", "gemma2-2b", "recurrentgemma-2b", "rwkv6-3b",
+         "olmoe-1b-7b", "minicpm3-4b", "deepseek-v2-236b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -142,14 +143,18 @@ def test_loss_and_every_gradient_leaf_match_reference(arch):
     jm, jp, tm, tp = _pair(arch)
     tc, jtc = TrainConfig(), JaxTrainConfig()   # remat "full" on both sides
     (b,) = _batches(1, 2, 32, tm.cfg.vocab_size)
-    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+    (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
         jax_make_loss_fn(jm, jtc), has_aux=True))(jp, _jax_batch(b))
     tp.requires_grad_(True)
     named = dict(tp.named_parameters())
     with attention_impl("xla"), recurrence_impl("plain"):
-        loss, _ = make_loss_fn(tm, tc)(tp, _torch_batch(b))
+        loss, metrics = make_loss_fn(tm, tc)(tp, _torch_batch(b))
         grads = torch.autograd.grad(loss, list(named.values()))
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    assert sorted(metrics) == sorted(jmetrics)
+    if tm.cfg.n_experts:   # the aux term, which the loss includes
+        np.testing.assert_allclose(metrics["moe_aux"].item(),
+                                   float(jmetrics["moe_aux"]), rtol=1e-5)
     got = lm_params_to_numpy(dict(zip(named, grads)), tm.cfg)
     assert jax.tree.structure(got) == jax.tree.structure(jgrads)
     for (path, want), (_, g) in zip(_leaves(jgrads), _leaves(got)):
@@ -265,6 +270,38 @@ def test_weight_decay_follows_the_reference_leaf_rank():
                           ("layers.2.norm2.scale", True),
                           ("layers.3.norm1.scale", False),
                           ("final_norm.scale", False)):
+        want = before[name] * shrink if decayed else before[name]
+        torch.testing.assert_close(named[name].detach(), want, rtol=1e-6,
+                                   atol=0)
+
+
+def test_weight_decay_ranks_of_the_moe_and_mla_leaves():
+    """deepseek-v2-236b reduced to 3 layers: the dense head layer is not
+    stacked in the reference (its MLA norm scales are rank 1, not
+    decayed), the two scanned MoE layers are (their norm scales rank 2,
+    decayed; the f32 router rank 3). A zero-gradient AdamW step decays
+    exactly the reference's leaves."""
+    jm, jp, tm, tp = _pair("deepseek-v2-236b", n_layers=3)
+    kw = dict(learning_rate=0.1, warmup_steps=0, schedule="constant",
+              weight_decay=0.5)
+    named = dict(tp.named_parameters())
+    before = {k: p.detach().clone() for k, p in named.items()}
+    adamw_update({k: torch.zeros_like(p) for k, p in named.items()},
+                 adamw_init(named), named, TrainConfig(**kw),
+                 reference_ranks(tp, tm.cfg))
+    jp2, _, _ = jax.jit(jax_adamw_update, static_argnums=3)(
+        jax.tree.map(jnp.zeros_like, jp), jax_adamw_init(jp), jp,
+        JaxTrainConfig(**kw))
+    got = lm_params_to_numpy(tp, tm.cfg)
+    for (path, want), (_, g) in zip(_leaves(jp2), _leaves(got)):
+        np.testing.assert_allclose(g, np.asarray(want), rtol=1e-6, atol=0,
+                                   err_msg=jax.tree_util.keystr(path))
+    shrink = 1.0 - 0.1 * 0.5
+    for name, decayed in (("layers.0.mixer.q_a_norm.scale", False),
+                          ("layers.0.ffn.wi_gate", True),
+                          ("layers.1.mixer.kv_a_norm.scale", True),
+                          ("layers.2.ffn.router", True),
+                          ("layers.2.ffn.shared.wo", True)):
         want = before[name] * shrink if decayed else before[name]
         torch.testing.assert_close(named[name].detach(), want, rtol=1e-6,
                                    atol=0)
