@@ -42,7 +42,7 @@ Phases, in order; any failure raises and exits non-zero:
    cards, on distinct cards: each final ``SweepState`` must equal phase
    6's bit for bit and the neighbor launches must equal 2 x chunk_steps x
    the batched calls made; then phase 4's sweep at full width through 2
-   blocks on one card for one chunk of 100 steps, its instance-steps/s and
+   blocks on one card for one chunk of 50 steps, its instance-steps/s and
    vehicle-steps/s beside phase 4's;
 7. profile — host ms per step of one sweep group (5 steps), and under
    ``torch.profiler`` (device activity only) the device's busy time, its
@@ -81,9 +81,10 @@ Phases, in order; any failure raises and exits non-zero:
    card for gemma2-2b; prints their shape and vocabulary;
 7d. train — training through the plain attention and recurrence paths,
    every hand kernel's launch count 0 in each part: (a) qwen1.5-0.5b,
-   gemma2-2b, recurrentgemma-2b, rwkv6-3b, olmoe-1b-7b, minicpm3-4b and
-   deepseek-v2-236b reduced, on the card and on
-   the CPU from the same seeded weights and batch: the loss's gradient
+   gemma2-2b, recurrentgemma-2b, rwkv6-3b, olmoe-1b-7b, minicpm3-4b,
+   deepseek-v2-236b, whisper-large-v3 (batches with frames) and
+   qwen2-vl-2b (batches with the vision stub's M-RoPE positions) reduced,
+   on the card and on the CPU from the same seeded weights and batch: the loss's gradient
    (the MoE aux loss in it), leaf by leaf, in f32 within rtol 1e-4 plus
    3e-5 of the leaf's largest entry and in bf16 within rtol 2^-6 plus
    2^-5 of it and an L2 error of 2^-5 (an MoE arch's bf16 gradient on the
@@ -127,13 +128,24 @@ Phases, in order; any failure raises and exits non-zero:
    the same for a plain attention that rounds p to bf16 before
    normalising (where the first Hopper build rounded it); then the MLA
    route (``models/attention.py::mla_attention``) at minicpm3-4b's shape
-   (H = K = 40, q/k 96 and v 64 zero-padded to 128, S 512/6000) and
+   (H = K = 40, q/k 96 and v 64 zero-padded to 128, S 512/2048/6000) and
    deepseek-v2-236b's (H = K = 128, q/k 192 and v 128 padded to 256, S
    512/2048), bf16 and f32: the sliced context against ``ref_attention``
    on the unpadded tensors at the same tolerances; the kernel timed on
    the padded tensors, its bound from the unpadded work (2·(dn + dr) +
    2·dv flops a live pair), the plain version and SDPA on the unpadded
-   tensors;
+   tensors (minicpm3-4b also at S 2048, its served prompts' length); then
+   the shapes the encoder-decoder and M-RoPE families give the kernel
+   (``FLASH_NEW_SHAPES``): whisper's non-causal encoder (B 1 and 4, S
+   1500, H 20, D 64), its decoder's causal prompt (B 4, S 224), its cross
+   attention (B 4, Sq 224 over Sk 1500) and its decode step's (B 4, one
+   query row over 1500 keys), qwen2-vl's causal S 6000 (and B 4, S 2048)
+   with 12 heads over 2 KV heads of 128, olmoe-1b-7b's S 2048 (H 16, D
+   128) and gemma2-9b's S 5000 (H 16 over 8 of 256, softcap 50, global and
+   local window 4096): bf16 and f32 at the same tolerances (bf16 only at
+   the three shapes timed to price bf16 launches: the B 4 encoder, the
+   decoder prompt, the M-RoPE streams), one launch each, with bound,
+   plain version and SDPA (none with a softcap);
 9. recurrences — ``rglru_linear_scan`` against ``ref_rglru`` (B 1 and 4,
    W 2560, S 37/512/6000 with mild decays and at B 1, S 6000 strong ones
    with exact zeros and ones; ys rtol 2e-2 atol 2e-3 in bf16, 1e-5 in f32,
@@ -188,6 +200,23 @@ beside it. Then deepseek-v2-236b at its published widths cut to 2 layers
 (the dense first layer and one MoE layer; 5.36 B parameters) runs phase
 11 at 2048 tokens: flash launched once per layer in each kernel prefill.
 
+Then whisper-large-v3 at full width (bf16, seeded random weights) through
+``greedy_generate(..., extras={"frames": ...})`` (``WHISPER``: 4 requests,
+frames [4, 1500, 1280] from the audio stub, 224-token prompts, 32 new
+tokens; the engine serves token requests only, as the reference's):
+flash launched 3 x 32 in the prefill and 32 a decode step; the encoder's,
+the prefill's (time to first token) and the decode steps' host seconds,
+the peak memory; phase 11 on one request's prefill, phase 12 (one
+prefill, one decode step), and the f32 model's tokens through the
+kernels equal to the plain path's. qwen2-vl-2b runs phases 10-13 as the
+dense models (text through the engine: plain RoPE, as the reference's
+engine serves it; phase 11 at 6000 tokens) and its M-RoPE path: 4 vision
+streams of 2048 tokens from the vision stub through ``greedy_generate``
+with their positions (flash once per layer; the logits moved from plain
+RoPE's), with phase 11 on that prefill. gemma2-9b at its published widths
+cut to one local and one global layer runs phase 11 at 5000 tokens. The
+script prints these phases' seconds.
+
 The second-to-last lines are the kernels JSON and the ``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -237,7 +266,8 @@ TOKENS = dict(batch=8, seq=1024, batches=4)
 # at full width on phase 7b's dataset through the launcher (sequences of
 # 4096, the reference's train_4k shape, in 4 microbatches of 2)
 TRAIN_ARCHS = ("qwen1.5-0.5b", "gemma2-2b", "recurrentgemma-2b", "rwkv6-3b",
-               "olmoe-1b-7b", "minicpm3-4b", "deepseek-v2-236b")
+               "olmoe-1b-7b", "minicpm3-4b", "deepseek-v2-236b",
+               "whisper-large-v3", "qwen2-vl-2b")
 TRAIN_SMALL = dict(steps=2, batch=4, seq=64, microbatches=2, lr=1e-3,
                    weight_decay=0.1)
 # card against CPU gradients, leaf by leaf (``grads_close``): f32 at the
@@ -252,10 +282,10 @@ TRAIN_GRAD_TOL = {"float32": dict(rtol=1e-4, atol_frac=3e-5),
 TRAIN_FULL = dict(arch="qwen1.5-0.5b", steps=4, batch=8, seq=4096,
                   microbatches=4, remat="full")
 # phase 6a: phase 4's sweep at full width timed through 2 blocks on one card
-# for one chunk of 100 steps (every chunk of phase 4 steps all instances, so
+# for one chunk of 50 steps (every chunk of phase 4 steps all instances, so
 # one chunk's rate is the sweep's; the short chunk keeps the script inside
 # its time limit on slower hosts)
-BLOCKS_FULL = dict(instances=1024, steps=100)
+BLOCKS_FULL = dict(instances=1024, steps=50)
 WORK = ROOT / "build" / "chip_smoke_run"  # checkpoints, datasets, journals
 SOURCE = "src/repro_torch/kernels/csrc/idm.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -285,6 +315,50 @@ ENGINE_REQUESTS = {"olmoe-1b-7b": 3, "minicpm3-4b": 3}
 # deepseek-v2-236b (472 GB of bf16 weights at 60 layers) at its published
 # widths cut to its dense first layer and one MoE layer: phase 11 only
 DEEPSEEK = dict(arch="deepseek-v2-236b", n_layers=2, prompt=2048)
+# gemma2-9b at its published widths cut from 42 layers to one local and one
+# global: phase 11 only, the prompt past the 4096 window
+GEMMA9 = dict(arch="gemma2-9b", n_layers=2, prompt=5000)
+# whisper-large-v3 at full width through greedy_generate (the engine takes
+# token requests only): 4 requests, frames [4, 1500, 1280] from the audio
+# stub at seed 0, decoder prompts of 224 tokens (half of the decoder's 448
+# positions) from seed 0, 32 new tokens, max_seq 256
+WHISPER = dict(arch="whisper-large-v3", batch=4, frames=1500, prompt=224,
+               new=32, max_seq=256)
+# qwen2-vl-2b at full width: (a) phases 10-13 with SERVE's traffic, as text
+# through the engine (plain RoPE, as the reference's engine serves it),
+# phase 11 at 6000 tokens; (b) 4 vision streams of 2048 tokens (a 22 x 22
+# patch grid, then text) through greedy_generate with their M-RoPE
+# positions, 16 new tokens, phase 11 on that prefill
+QWEN_VL = dict(arch="qwen2-vl-2b", plain_n=6000, streams=4, stream_len=2048,
+               new=16)
+# phase 8 at the shapes the encoder-decoder and qwen2-vl give the kernel (the
+# encoder at B 1 and at WHISPER's 4 rows, the decoder's prompt, its cross
+# attention and its decode step's; qwen2-vl's longest prompts and its M-RoPE
+# streams), at olmoe-1b-7b's at its served prompts' length and at gemma2-9b's
+# phase-11 prompt (16 heads over 8 of 256, softcap 50; local window 4096):
+# (label, B, Sq, Sk, H, K, D, causal, window, softcap, dtypes): the shapes
+# served only in bf16 and timed to price their launches run in bf16 alone
+BOTH, BF16 = ("bfloat16", "float32"), ("bfloat16",)
+FLASH_NEW_SHAPES = [
+    ("whisper-large-v3 encoder S=1500", 1, 1500, 1500, 20, 20, 64, False, 0,
+     0.0, BOTH),
+    ("whisper-large-v3 encoder B=4 S=1500", 4, 1500, 1500, 20, 20, 64,
+     False, 0, 0.0, BF16),
+    ("whisper-large-v3 decoder S=224", 4, 224, 224, 20, 20, 64, True, 0,
+     0.0, BF16),
+    ("whisper-large-v3 cross Sq=224 Sk=1500", 4, 224, 1500, 20, 20, 64,
+     False, 0, 0.0, BOTH),
+    ("whisper-large-v3 decode cross Sq=1 Sk=1500", 4, 1, 1500, 20, 20, 64,
+     False, 0, 0.0, BOTH),
+    ("qwen2-vl-2b S=6000", 1, 6000, 6000, 12, 2, 128, True, 0, 0.0, BOTH),
+    ("qwen2-vl-2b M-RoPE B=4 S=2048", 4, 2048, 2048, 12, 2, 128, True, 0,
+     0.0, BF16),
+    ("olmoe-1b-7b S=2048", 1, 2048, 2048, 16, 16, 128, True, 0, 0.0, BOTH),
+    ("gemma2-9b global S=5000", 1, 5000, 5000, 16, 8, 256, True, 0, 50.0,
+     BOTH),
+    ("gemma2-9b local S=5000", 1, 5000, 5000, 16, 8, 256, True, 4096, 50.0,
+     BOTH),
+]
 # the kernel each layer kind's prefill launches
 KERNEL_OF_KIND = {"global": "flash_attention", "local": "flash_attention",
                   "recurrent": "rglru_linear_scan", "rwkv": "wkv6"}
@@ -332,10 +406,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, reps: int = 10, trials: int = 21) -> float:
+def device_ms(fn, reps: int = 10, trials: int = 21,
+              warmup: int = 3) -> float:
     """Device time of one ``fn()`` call in ms: the median over ``trials``
     CUDA-event timings, each over ``reps`` back-to-back calls, after
-    warm-up.
+    ``warmup`` calls (one is enough for a plain Python loop over S, whose
+    first steps warm every kernel it runs).
 
     The stream is first held busy with ``torch.cuda._sleep`` for longer
     than the host takes to enqueue the timed launches, so the events
@@ -344,7 +420,7 @@ def device_ms(fn, reps: int = 10, trials: int = 21) -> float:
     """
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1089,6 +1165,32 @@ def tokens_phase(torch, ds) -> dict:
                 batch_s=batch_s)
 
 
+def batch_on(batch: dict, cfg, dev) -> dict:
+    """A batch moved to ``dev``, its float tensors (an encoder-decoder's
+    frames) cast to the model's type."""
+    from repro_torch.models.common import cdtype
+
+    return {k: v.to(dev, cdtype(cfg) if v.is_floating_point() else v.dtype)
+            for k, v in batch.items()}
+
+
+def train_extras(torch, cfg, batch: int, seq: int, rng) -> dict:
+    """The extras of 7d(a)'s batches: frames ``[batch, enc_ctx, d]`` (f32,
+    from ``rng``) for an encoder-decoder, the vision stub's M-RoPE positions
+    ``[3, batch, seq]`` for an M-RoPE config."""
+    from repro_torch.core import prng
+    from repro_torch.models.frontends import vision_stream_stub
+
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = torch.from_numpy(rng.normal(
+            size=(batch, cfg.enc_ctx, cfg.d_model)).astype("float32"))
+    if cfg.mrope_sections:
+        out["mrope_pos"] = vision_stream_stub(prng.key(0, "cpu"), cfg, batch,
+                                              seq)[1]
+    return out
+
+
 def small_train_run(torch, cfg, params, batches, dev: str):
     """``TRAIN_SMALL``'s steps of ``make_train_step`` on ``dev`` from
     ``params``: (host copies of the first moments m after the first step,
@@ -1105,8 +1207,7 @@ def small_train_run(torch, cfg, params, batches, dev: str):
     state = adamw_init(dict(params.named_parameters()))
     metrics, m1 = [], None
     for b in batches:
-        params, state, m = step(params, state,
-                                {k: v.to(dev) for k, v in b.items()})
+        params, state, m = step(params, state, batch_on(b, cfg, dev))
         metrics.append({k: float(v) for k, v in m.items()})
         if m1 is None:
             m1 = {k: v.cpu().clone() for k, v in state.m.items()}
@@ -1123,7 +1224,7 @@ def loss_grads(torch, model, params, batch: dict) -> dict:
 
     params.requires_grad_(True)
     names = [k for k, _ in params.named_parameters()]
-    dev = {k: v.to(model.device) for k, v in batch.items()}
+    dev = batch_on(batch, model.cfg, model.device)
     with attention_impl("xla"), recurrence_impl("plain"):
         loss, _ = make_loss_fn(model, TrainConfig())(params, dev)
         grads = torch.autograd.grad(loss, list(params.parameters()))
@@ -1227,12 +1328,15 @@ def train_phase(torch, ds, counters) -> dict:
     rng = np.random.default_rng(7)
     small, flipped = {}, {}
     for arch in TRAIN_ARCHS:
+        t_arch = time.perf_counter()
         batches = []
         for _ in range(t["steps"]):
+            reduced = get_arch(arch).reduced()
             toks = torch.from_numpy(rng.integers(
-                0, get_arch(arch).reduced().vocab_size,
-                (t["batch"], t["seq"] + 1)))
-            batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+                0, reduced.vocab_size, (t["batch"], t["seq"] + 1)))
+            batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                            **train_extras(torch, reduced, t["batch"],
+                                           t["seq"], rng)})
         worst, f32 = {}, None
         for dtype, tol in TRAIN_GRAD_TOL.items():
             cfg = dataclasses.replace(get_arch(arch).reduced(), dtype=dtype)
@@ -1285,7 +1389,7 @@ def train_phase(torch, ds, counters) -> dict:
                            cpu_loss=[m["loss"] for m in cpu_m],
                            grad_norm=[m["grad_norm"] for m in card_m],
                            worst_over_leaf_max=worst, params=len(card_g),
-                           card_s=card_s,
+                           card_s=card_s, arch_s=time.perf_counter() - t_arch,
                            bf16_expert_sets_differ=flipped.get(arch))
         routed = ("" if arch not in flipped else
                   f" (bf16 with the CPU's MoE routing: on its own the card "
@@ -1616,7 +1720,8 @@ def flash_phase(torch, fa, ref) -> list[dict]:
 # (128 + 64, v 128); H = K, no window, no softcap
 MLA_SHAPES = [
     (f"{arch} MLA S={s}", 1, s, h, dqk, dv)
-    for arch, h, dqk, dv, lengths in (("minicpm3-4b", 40, 96, 64, (512, 6000)),
+    for arch, h, dqk, dv, lengths in (("minicpm3-4b", 40, 96, 64,
+                                       (512, 2048, 6000)),
                                       ("deepseek-v2-236b", 128, 192, 128,
                                        (512, 2048)))
     for s in lengths
@@ -1694,6 +1799,80 @@ def mla_flash_phase(torch, fa, ref) -> list[dict]:
                 f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
                 f"sdpa (unpadded) {library_ms:.5f} ms")
             del q, k, v, qp, kp, vp, got, want
+    return results
+
+
+def flash_new_phase(torch, fa, ref) -> list[dict]:
+    """``flash_attention`` at ``FLASH_NEW_SHAPES``: non-causal self- and
+    cross-attention with Sq != Sk and a single query row (the whisper
+    decode step's cross attention), GQA 6:1 at D 128, olmoe-1b-7b's at S
+    2048, gemma2-9b's at S 5000; in each shape's types (bf16 and f32, or
+    bf16 alone) against ``ref_attention`` at ``FLASH_TOL``, one launch
+    each; kernel, plain version, bound and SDPA
+    (``is_causal`` only where Sq = Sk; ``enable_gqa``) timed, SDPA where
+    it computes the same function (no softcap, no window)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    results = []
+    for (label, b, sq, sk, h, kh, d, causal, window, cap,
+         dtypes) in FLASH_NEW_SHAPES:
+        kw = dict(causal=causal, window=window, softcap=cap)
+        for dtype in dtypes:
+            dt = getattr(torch, dtype)
+            q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn((b, sk, kh, d), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            n0 = fa.launches["flash_attention"]
+            got = fa.flash_attention(q, k, v, **kw)
+            if fa.launches["flash_attention"] != n0 + 1:
+                raise AssertionError(f"{label}: the kernel did not launch once")
+            want = ref.ref_attention(q, k, v, causal, window, cap)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **FLASH_TOL[dtype])
+            err = float((got.float() - want.float()).abs().max())
+            reps, trials = (2, 5) if max(sq, sk) > 2048 else (10, 21)
+            ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw), reps,
+                           trials)
+            plain_ms = device_ms(
+                lambda: ref.ref_attention(q, k, v, causal, window, cap), 1,
+                trials)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+            library_ms = None
+            if cap == 0.0 and window == 0:
+                torch.testing.assert_close(lib().transpose(1, 2).float(),
+                                           want.float(), **FLASH_TOL[dtype])
+                library_ms = device_ms(lib, reps, trials)
+            pairs = live_pairs(sq, sk, causal, window) * b * h
+            bytes_moved = (2 * b * sq * h * d + 2 * b * sk * kh * d) \
+                * q.element_size()
+            bound_ms, bound_by = bound(bytes_moved, 4 * d * pairs,
+                                       TENSOR_OPS_PER_S[dtype])
+            tflops = 4 * d * pairs / ms / 1e9
+            results.append(dict(shape=label, B=b, S=sq, Sq=sq, Sk=sk, H=h,
+                                K=kh, D=d, causal=causal, window=window,
+                                softcap=cap, q_scale=1.0, dtype=dtype,
+                                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                tflops=tflops, bound_share=bound_ms / ms,
+                                library="sdpa" if library_ms else None,
+                                library_ms=library_ms))
+            lib_txt = (f"sdpa {library_ms:.5f} ms" if library_ms else
+                       "no SDPA call computes a softcap or a window")
+            log(f"flash_attention {label} (B {b}, H {h}, K {kh}, D {d}, "
+                f"{'causal' if causal else 'not causal'}, window {window}, "
+                f"softcap {cap}) {dtype}: max |err| {err:.3g} (tol "
+                f"{FLASH_TOL[dtype]}); kernel {ms:.5f} ms ({tflops:.1f} "
+                f"TFLOP/s, {100 * bound_ms / ms:.2f}% of its bound), plain "
+                f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+                f"{lib_txt}")
+            del q, k, v, got, want
     return results
 
 
@@ -1813,7 +1992,8 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
             ms = device_ms(lambda: rg.rglru_linear_scan(a, x, h0), 10, trials)
             main = (b, s, decay, dtype) == (1, 6000, "mild", "float32")
             plain_ms = (device_ms(lambda: ref.ref_rglru(a, x, h0), 1,
-                                  PLAIN_LOOP_TRIALS if s > 1024 else 5)
+                                  PLAIN_LOOP_TRIALS if s > 1024 else 5,
+                                  warmup=1)
                         if main or s <= 1024 else None)
             bound_ms, bound_by = bound(
                 b * s * w * (4 + 2 * x.element_size()) + 2 * b * w * 4,
@@ -1877,7 +2057,8 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
                            trials)
             main = (s, decay, dtype) == (6000, "mild", "float32")
             plain_ms = (device_ms(lambda: ref.ref_wkv6(*args), 1,
-                                  PLAIN_LOOP_TRIALS if s > 1024 else 5)
+                                  PLAIN_LOOP_TRIALS if s > 1024 else 5,
+                                  warmup=1)
                         if main or s <= 1024 else None)
             elt = v.element_size()
             bytes_moved = (b * s * h * (kd * (2 * elt + 4) + 2 * vd * elt)
@@ -2058,21 +2239,26 @@ def serve_phase(torch, arch: str, counters, serve: dict = SERVE) -> dict:
     return out
 
 
-def serve_profile(torch, model, params, n: int = 6000, steps: int = 2) -> dict:
+def serve_profile(torch, model, params, n: int = 6000, steps: int = 2,
+                  extras: dict | None = None) -> dict:
     """Where serving's time goes: one n-token prefill and ``steps`` decode
     steps at 4 live slots under ``torch.profiler`` (device activity only):
     wall time, device busy time, each hand-written kernel's time and share,
-    the heaviest kernels."""
+    the heaviest kernels. ``extras`` (one row each, batch axis 0: an
+    encoder-decoder's frames) join every prefill's batch."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, model.cfg.vocab_size, (1, n))).cuda()
+    extras = extras or {}
+    rows4 = {k: v.expand(4, *v.shape[1:]) for k, v in extras.items()}
     out = {}
     with torch.inference_mode():
-        model.prefill(params, model.init_cache(1, n), {"tokens": toks[:, :64]})
+        model.prefill(params, model.init_cache(1, n),
+                      {"tokens": toks[:, :64], **extras})
         cache = model.init_cache(4, n + steps + 1)
-        batch = {"tokens": toks.expand(4, n)}
+        batch = {"tokens": toks.expand(4, n), **rows4}
         model.prefill(params, cache, batch)  # fill 4 rows for the decode
         tok = torch.zeros(4, dtype=torch.int64, device="cuda")
         for phase in ("prefill", "decode"):
@@ -2081,7 +2267,7 @@ def serve_profile(torch, model, params, n: int = 6000, steps: int = 2) -> dict:
                 t0 = time.perf_counter()
                 if phase == "prefill":
                     model.prefill(params, model.init_cache(1, n),
-                                  {"tokens": toks})
+                                  {"tokens": toks, **extras})
                 else:
                     for i in range(steps):
                         pos = torch.full((4,), n + i, dtype=torch.int32,
@@ -2121,11 +2307,14 @@ def serve_profile(torch, model, params, n: int = 6000, steps: int = 2) -> dict:
     return out
 
 
-def serve_vs_plain(torch, model, params, n: int):
+def serve_vs_plain(torch, model, params, n: int, batch: dict | None = None):
     """Last-position prefill logits of one ``n``-token prompt through the
     kernels and through the plain path (``attention_impl("xla")`` and
     ``recurrence_impl("plain")``), at full width, in bf16 and in f32 (the
-    same weights, widened exactly).
+    same weights, widened exactly). ``batch`` (one row, on the card) is the
+    prefill's batch where it is more than seeded tokens (an
+    encoder-decoder's frames, M-RoPE positions); its float tensors are
+    cast to each model's type.
 
     Checks: (1) in f32 the two paths agree within rtol = atol = 1e-3 (the
     same f32 arithmetic, summed in other orders); (2) in bf16 the kernels'
@@ -2150,23 +2339,25 @@ def serve_vs_plain(torch, model, params, n: int):
     import numpy as np
 
     from repro_torch.models.attention import attention_impl
-    from repro_torch.models.lm import LM
     from repro_torch.models.recurrent import recurrence_impl
-    from repro_torch.models.registry import build_model
+    from repro_torch.models.registry import build_model, params_module
 
     if "local" in model.cfg.layer_pattern and n <= model.cfg.window:
         raise AssertionError(f"prompt of {n} within the window "
                              f"{model.cfg.window}: no key is masked by it")
-    toks = np.random.default_rng(1).integers(0, model.cfg.vocab_size, (1, n))
-    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    if batch is None:
+        toks = np.random.default_rng(1).integers(0, model.cfg.vocab_size,
+                                                 (1, n))
+        batch = {"tokens": torch.from_numpy(toks).cuda()}
     model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"),
                           "cuda")
-    params32 = LM(model32.cfg, model32.device)
+    params32 = params_module(model32.cfg, model32.device)
     params32.load_state_dict(params.state_dict())
     logits, routes = {}, {}
     with torch.inference_mode():
         for name, m, p in (("bf16", model, params), ("f32", model32,
                                                      params32)):
+            batch = batch_on(batch, m.cfg, "cuda")
             with moe_routes(experts=True) as routes[name, "kernel"]:
                 logits[name, "kernel"], _ = m.prefill(p, m.init_cache(1, n),
                                                       batch)
@@ -2181,6 +2372,7 @@ def serve_vs_plain(torch, model, params, n: int):
             # the plain paths once more, with the bf16 kernel path's routing
             for name, m, p in (("bf16", model, params),
                                ("f32", model32, params32)):
+                batch = batch_on(batch, m.cfg, "cuda")
                 with attention_impl("xla"), recurrence_impl("plain"), \
                         moe_routes(replay=routes["bf16", "kernel"]):
                     logits[name, "plain, routed alike"], _ = m.prefill(
@@ -2302,12 +2494,13 @@ def engine_vs_greedy(torch, model, params, n_requests: int = 6) -> dict:
     return out
 
 
-def deepseek_phase(torch, fa) -> dict:
-    """Phase 11 for deepseek-v2-236b at its published widths cut to
-    ``DEEPSEEK["n_layers"]`` layers (the dense first layer of width 12288
-    and one MoE layer of 160 experts and 2 shared; MLA with 128 heads,
-    q/k 192 padded to 256): the model built through the registry with
-    seeded weights, and ``serve_vs_plain`` at ``DEEPSEEK["prompt"]``
+def cut_model_phase(torch, fa, arch: str, n_layers: int, prompt: int) -> dict:
+    """Phase 11 for ``arch`` at its published widths cut to ``n_layers``
+    layers (deepseek-v2-236b: the dense first layer of width 12288 and one
+    MoE layer of 160 experts and 2 shared, MLA with 128 heads, q/k 192
+    padded to 256; gemma2-9b: one local and one global layer, 16 heads
+    over 8 KV heads of 256, softcap 50): the model built through the
+    registry with seeded weights, and ``serve_vs_plain`` at ``prompt``
     tokens. The flash kernel must launch once per layer in each of the
     phase's two kernel-route prefills (bf16 and f32)."""
     import dataclasses
@@ -2316,19 +2509,17 @@ def deepseek_phase(torch, fa) -> dict:
     from repro_torch.models.registry import build_model
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_arch(DEEPSEEK["arch"]),
-                              n_layers=DEEPSEEK["n_layers"])
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
     model = build_model(cfg, "cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = model.init(gen)
     n_params = sum(p.numel() for p in params.parameters())
     fa.reset_launches()
-    out, model32, params32 = serve_vs_plain(torch, model, params,
-                                            DEEPSEEK["prompt"])
+    out, model32, params32 = serve_vs_plain(torch, model, params, prompt)
     launches = fa.launches["flash_attention"]
     if launches != 2 * cfg.n_layers:
-        raise AssertionError(f"deepseek: flash_attention launched {launches} "
+        raise AssertionError(f"{arch}: flash_attention launched {launches} "
                              f"times in 2 kernel prefills of {cfg.n_layers} "
                              "layers")
     del model, params, model32, params32
@@ -2339,6 +2530,189 @@ def deepseek_phase(torch, fa) -> dict:
         f"published widths ({n_params} parameters): flash_attention "
         f"launched {launches} = {cfg.n_layers} x 2 prefills; phase "
         f"{out['phase_s']:.1f} s")
+    return out
+
+
+def whisper_phase(torch, fa) -> dict:
+    """whisper-large-v3 at full width (bf16, seeded random weights) through
+    ``greedy_generate(..., extras={"frames": ...})``, ``WHISPER``'s
+    traffic. The flash kernel must launch 3 x 32 times in the prefill (the
+    encoder's non-causal self-attention, the decoder's causal self- and
+    its cross attention) and 32 times a decode step (cross attention, one
+    query row), the counts set to 0 just before and read just after; every
+    token in the vocabulary. Timed on the host clock, each step ending in
+    a copy of its tokens to the host: the encoder alone, the prefill (time
+    to first token: encoder, decoder prompt, first token), the decode
+    steps; the peak memory. Then phase 11 on one request's prefill, phase
+    12 (one prefill and one decode step at 4 rows) and, for want of an
+    engine path (the reference's engine cannot serve it either), the f32
+    model's generated tokens through the kernels equal to the plain
+    path's."""
+    import numpy as np
+
+    from repro_torch.config.base import get_arch
+    from repro_torch.core import prng
+    from repro_torch.models.attention import attention_impl
+    from repro_torch.models.encdec import encode
+    from repro_torch.models.frontends import audio_frames_stub
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import greedy_generate
+
+    t0 = time.perf_counter()
+    w = WHISPER
+    b, s0, new = w["batch"], w["prompt"], w["new"]
+    cfg = get_arch(w["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    frames = audio_frames_stub(prng.key(0, "cuda"), cfg, b, w["frames"])
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s0))).cuda()
+    extras = {"frames": frames}
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t = time.perf_counter()
+    toks = greedy_generate(model, params, prompt, new, w["max_seq"],
+                           extras=extras).cpu()
+    generate_s = time.perf_counter() - t
+    launches = fa.launches["flash_attention"]
+    want = 3 * cfg.n_layers + cfg.n_layers * new
+    if launches != want:
+        raise AssertionError(f"whisper: flash_attention launched {launches} "
+                             f"times, expected 3 x {cfg.n_layers} + "
+                             f"{cfg.n_layers} x {new} decode steps = {want}")
+    if toks.shape != (b, new) or not bool(((toks >= 0)
+                                           & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"whisper: generated {tuple(toks.shape)} tokens "
+                             "or some outside the vocabulary")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        encode(params, cfg, frames)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t
+        cache = model.init_cache(b, w["max_seq"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = model.prefill(params, cache,
+                                      {"tokens": prompt, **extras})
+        tok = logits.argmax(-1)
+        host = [tok.tolist()]
+        ttft_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for i in range(new - 1):
+            pos = torch.full((b,), s0 + i, dtype=torch.int32, device="cuda")
+            logits, cache = model.decode(params, cache, tok, pos)
+            tok = logits.argmax(-1)
+            host.append(tok.tolist())
+        decode_s = time.perf_counter() - t
+    del cache
+    same = bool((torch.tensor(host).T == toks).all())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out = dict(arch=cfg.name, params=n_params, launches=launches,
+               launches_per_prefill=3 * cfg.n_layers,
+               launches_per_decode_step=cfg.n_layers,
+               generate_s=generate_s, encode_s=encode_s, ttft_s=ttft_s,
+               prefill_tokens=b * s0, frames=b * w["frames"],
+               prefill_tokens_per_s=b * s0 / ttft_s,
+               decode_tokens=b * (new - 1), decode_s=decode_s,
+               decode_tokens_per_s=b * (new - 1) / decode_s,
+               timed_equal_generate=same, peak_gb=peak_gb)
+    log(f"serve: whisper-large-v3 full width bf16 ({n_params} parameters), "
+        f"{b} requests in one greedy_generate batch, frames [{b}, "
+        f"{w['frames']}, {cfg.d_model}], prompts of {s0} tokens, {new} new "
+        f"tokens: generate {generate_s:.3f} s; encoder {encode_s:.4f} s; "
+        f"time to first token (encoder, prompt, first token) {ttft_s:.4f} s, "
+        f"{out['prefill_tokens_per_s']:.1f} prompt tokens/s beside "
+        f"{b * w['frames'] / ttft_s:.1f} frames/s; decode {b * (new - 1)} "
+        f"tokens in {new - 1} steps, {decode_s:.4f} s = "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s (host clock, each step "
+        f"ending in a copy to the host; its tokens equal generate's: "
+        f"{same}); flash_attention {launches} = 3 x {cfg.n_layers} + "
+        f"{cfg.n_layers} x {new}; peak memory {peak_gb:.2f} GB")
+    one = {"tokens": prompt[:1], "frames": frames[:1]}
+    out["vs_plain"], model32, params32 = serve_vs_plain(torch, model, params,
+                                                        s0, batch=one)
+    out["profile"] = serve_profile(torch, model, params, s0, steps=1,
+                                   extras={"frames": frames[:1]})
+    del model, params
+    torch.cuda.empty_cache()
+    ex32 = {"frames": frames.float()}
+    kern = greedy_generate(model32, params32, prompt, new, w["max_seq"],
+                           extras=ex32).cpu()
+    with attention_impl("xla"):
+        plain = greedy_generate(model32, params32, prompt, new, w["max_seq"],
+                                extras=ex32).cpu()
+    if not torch.equal(kern, plain):
+        row, step = (int(x[0]) for x in torch.nonzero(kern != plain)[:1].T)
+        raise AssertionError(f"whisper f32: the kernel path's tokens differ "
+                             f"from the plain path's at request {row}, step "
+                             f"{step}")
+    del model32, params32
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"serve: whisper-large-v3 full width f32, the same {b} requests: the "
+        f"{new} tokens through the kernels equal the plain path's; phase "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
+def mrope_phase(torch, fa, model, params) -> dict:
+    """qwen2-vl-2b's M-RoPE path (``QWEN_VL`` (b)): the vision stub's
+    streams through ``greedy_generate(..., extras={"mrope_pos": ...})``;
+    the flash kernel must launch once per layer in the prefill (decode
+    attends through ``sdpa``, with plain RoPE positions as the
+    reference's); the last-position logits with M-RoPE must differ from
+    plain RoPE's on the same tokens; phase 11 on one stream's prefill."""
+    from repro_torch.core import prng
+    from repro_torch.models.frontends import vision_stream_stub
+    from repro_torch.serve.engine import greedy_generate
+
+    t0 = time.perf_counter()
+    q = QWEN_VL
+    cfg = model.cfg
+    tokens, mrope = vision_stream_stub(prng.key(0, "cuda"), cfg, q["streams"],
+                                       q["stream_len"])
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t = time.perf_counter()
+    toks = greedy_generate(model, params, tokens, q["new"],
+                           extras={"mrope_pos": mrope}).cpu()
+    generate_s = time.perf_counter() - t
+    launches = fa.launches["flash_attention"]
+    if launches != cfg.n_layers:
+        raise AssertionError(f"qwen2-vl M-RoPE: flash_attention launched "
+                             f"{launches} times, expected {cfg.n_layers}")
+    if toks.shape != (q["streams"], q["new"]) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("qwen2-vl M-RoPE: bad generated tokens")
+    one = {"tokens": tokens[:1], "mrope_pos": mrope[:, :1]}
+    with torch.inference_mode():
+        with_m, _ = model.prefill(params, model.init_cache(1, q["stream_len"]),
+                                  one)
+        plain_rope, _ = model.prefill(params,
+                                      model.init_cache(1, q["stream_len"]),
+                                      {"tokens": tokens[:1]})
+    moved = float((with_m - plain_rope).abs().max())
+    if moved <= 1e-2:
+        raise AssertionError(f"qwen2-vl: M-RoPE moves the logits by only "
+                             f"{moved:.3g}")
+    vs_plain, model32, params32 = serve_vs_plain(torch, model, params,
+                                                 q["stream_len"], batch=one)
+    del model32, params32
+    torch.cuda.empty_cache()
+    out = dict(launches=launches, generate_s=generate_s,
+               mrope_moves_logits=moved, vs_plain=vs_plain,
+               phase_s=time.perf_counter() - t0)
+    log(f"serve: qwen2-vl-2b M-RoPE, {q['streams']} vision streams of "
+        f"{q['stream_len']} tokens ({int((q['stream_len'] // 4) ** 0.5)}^2 "
+        f"patch grid, then text), {q['new']} new tokens through "
+        f"greedy_generate: {generate_s:.3f} s, flash_attention {launches} = "
+        f"{cfg.n_layers} x 1 prefill; M-RoPE moves the last-position logits "
+        f"by {moved:.4g} from plain RoPE's; phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -2517,6 +2891,10 @@ def main() -> None:
     # 8. flash attention against its plain version
     fl_results = flash_phase(torch, fa, ref)
     fl_results += mla_flash_phase(torch, fa, ref)
+    t_flash_new = time.perf_counter()
+    fl_new = flash_new_phase(torch, fa, ref)
+    fl_results += fl_new
+    flash_new_s = time.perf_counter() - t_flash_new
     margin = flash_margin(torch, fa, ref)
     if margin["crossed"]:
         raise AssertionError(f"flash_attention bf16: {margin['crossed']} of "
@@ -2560,9 +2938,38 @@ def main() -> None:
         out["phase_s"] = time.perf_counter() - t0
         log(f"serve: {arch}, phases 10-13 in {out['phase_s']:.1f} s")
         served[arch] = out
-    deepseek = deepseek_phase(torch, fa)
+    deepseek = cut_model_phase(torch, fa, **DEEPSEEK)
     log(f"serve: the MoE and MLA families (phases 10-13 and deepseek's 11) "
         f"in {time.perf_counter() - t_new:.1f} s")
+    # the encoder-decoder and M-RoPE families, then gemma2-9b cut to 2
+    # layers through phase 11
+    whisper = whisper_phase(torch, fa)
+    t0 = time.perf_counter()
+    out = serve_phase(torch, QWEN_VL["arch"], (fa, rg, rw))
+    model, params = out.pop("model"), out.pop("params")
+    out["vs_plain"], model32, params32 = serve_vs_plain(
+        torch, model, params, QWEN_VL["plain_n"])
+    out["profile"] = serve_profile(torch, model, params)
+    out["mrope"] = mrope_phase(torch, fa, model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    out["engine_vs_greedy"] = engine_vs_greedy(torch, model32, params32)
+    del model32, params32
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"serve: {QWEN_VL['arch']}, phases 10-13 and the M-RoPE path in "
+        f"{out['phase_s']:.1f} s")
+    served[QWEN_VL["arch"]] = out
+    gemma9 = cut_model_phase(torch, fa, **GEMMA9)
+    train_new_s = sum(train["small"][a]["arch_s"]
+                      for a in ("whisper-large-v3", "qwen2-vl-2b"))
+    new_s = {"phase 8 new shapes": flash_new_s, "whisper-large-v3":
+             whisper["phase_s"], "qwen2-vl-2b": out["phase_s"],
+             "gemma2-9b (2 layers)": gemma9["phase_s"],
+             "7d(a) whisper and qwen2-vl": train_new_s}
+    log("the encoder-decoder, M-RoPE and gemma2-9b work: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in new_s.items())
+        + f"; {sum(new_s.values()):.1f} s in all")
 
     def launched(name):
         return sum(out["launches"][name] for out in served.values())
@@ -2574,21 +2981,28 @@ def main() -> None:
                    r["S"] == 6000 and r["B"] == 1 and r["decay"] == "mild")
     main_rw = next(r for r in rw_results if r["dtype"] == "float32" and
                    r["S"] == 6000 and r["decay"] == "mild")
+    mrope = served[QWEN_VL["arch"]]["mrope"]
     kernels.append(dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
         replaces="src/repro/kernels/flash_attention.py:135",
-        launches=launched("flash_attention"),
+        launches=launched("flash_attention") + whisper["launches"]
+        + mrope["launches"],
         launches_by_path={**{arch: out["launches"]["flash_attention"]
                              for arch, out in served.items()},
+                          "whisper-large-v3": whisper["launches"],
+                          "qwen2-vl-2b (M-RoPE)": mrope["launches"],
                           "deepseek-v2-236b (2 layers, phase 11)":
                               deepseek["launches"],
+                          "gemma2-9b (2 layers, phase 11)":
+                              gemma9["launches"],
                           "train": train["launches"]["flash_attention"]},
         max_abs_err=max(r["max_abs_err"] for r in fl_results),
         ms=main_fl["ms"], plain_ms=main_fl["plain_ms"],
         bound_ms=main_fl["bound_ms"], bound_by=main_fl["bound_by"],
         library=main_fl["library"], library_ms=main_fl["library_ms"],
         shapes=fl_results, bf16_margin=margin,
-        serve=served["gemma2-2b"], deepseek_vs_plain=deepseek))
+        serve=served["gemma2-2b"], deepseek_vs_plain=deepseek,
+        gemma2_9b_vs_plain=gemma9, whisper=whisper, new_work_s=new_s))
     for name, source, replaces, main_row, rows, arch in (
             ("rglru_linear_scan", RGLRU_SOURCE,
              "src/repro/kernels/rglru.py:74", main_rg, rg_results,

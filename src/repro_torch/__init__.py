@@ -14,11 +14,13 @@ slice at a time. Ported so far:
   faults, the supervised loop with pipelined host I/O, the process
   controller ``python -m repro_torch.launch.controller``, and the token
   data path from shards to LM batches (:mod:`repro_torch.data`);
-* LM serving for gemma2-2b, qwen1.5-0.5b, recurrentgemma-2b and rwkv6-3b:
-  the configs (:mod:`repro_torch.config`, :mod:`repro_torch.configs`), the
-  model stack (:mod:`repro_torch.models`) whose prefill attention and
-  recurrences run hand-written CUDA kernels, the continuous-batching
-  engine (:mod:`repro_torch.serve`) and ``python -m
+* LM serving for every architecture of the reference (the dense,
+  recurrent, rwkv, MoE, MLA and M-RoPE decoder-only families and the
+  whisper encoder-decoder): the configs (:mod:`repro_torch.config`,
+  :mod:`repro_torch.configs`), the model stack (:mod:`repro_torch.models`)
+  whose full-sequence attention and prefill recurrences run hand-written
+  CUDA kernels, the stub frontends, the continuous-batching engine and
+  ``greedy_generate`` (:mod:`repro_torch.serve`) and ``python -m
   repro_torch.launch.serve``;
 * LM training (:mod:`repro_torch.train`): AdamW, schedules, clipping,
   microbatching, remat and the checkpointed trainer, through the plain

@@ -1,9 +1,11 @@
 """Carry state and weights across from the reference package, through numpy.
 
-:func:`lm_params_from_numpy` turns the reference's LM parameters (a nested
-dict of numpy arrays) into the port's :class:`~repro_torch.models.lm.LM`,
-and :func:`lm_params_to_numpy` turns an LM, or its gradients or moments
-keyed by parameter name, back into that layout;
+:func:`lm_params_from_numpy` turns the reference's model parameters (a
+nested dict of numpy arrays) into the port's
+:class:`~repro_torch.models.lm.LM` or, for an encoder-decoder config,
+:class:`~repro_torch.models.encdec.EncDec`, and :func:`lm_params_to_numpy`
+turns either, or its gradients or moments keyed by parameter name, back
+into that layout;
 :func:`adamw_state_from_numpy` and :func:`adamw_state_to_numpy` carry an
 optimizer state across either way.
 
@@ -31,7 +33,9 @@ from repro_torch.core.scenario import ScenarioParams
 from repro_torch.core.simulator import SimMetrics, SimState
 from repro_torch.core.sweep import SweepState
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import LM, stack_plan
+from repro_torch.models.encdec import STACKED as ENCDEC_STACKED
+from repro_torch.models.lm import stack_plan
+from repro_torch.models.registry import params_module
 from repro_torch.train.optim import AdamWState
 
 
@@ -111,25 +115,35 @@ def _flatten(tree, prefix: str, out: dict) -> dict:
 
 
 def _unstack(tree, cfg: ModelConfig) -> dict:
-    """A tree in the reference's LM layout → ``{port parameter name:
-    leaf}``, checked against the names and shapes of an :class:`LM` of
+    """A tree in the reference's layout → ``{port parameter name: leaf}``,
+    checked against the names and shapes of the port's parameters of
     ``cfg``.
 
-    The reference's scanned stack ``blocks/l{j}`` (leaves ``[n_blocks,
+    LM: the reference's scanned stack ``blocks/l{j}`` (leaves ``[n_blocks,
     ...]``) is unstacked into layers ``i * len(pattern) + j`` after the
     ``head_layers``, followed by the ``tail_layers`` (recurrentgemma's
-    last two Griffin blocks)."""
-    plan = stack_plan(cfg)
-    layers = list(tree.get("head_layers", []))
-    layers += [_index(tree["blocks"][f"l{j}"], i)
-               for i in range(plan.n_blocks) for j in range(len(plan.pattern))]
-    layers += list(tree.get("tail_layers", []))
-    state = _flatten({k: v for k, v in tree.items()
-                      if k not in ("blocks", "head_layers", "tail_layers")},
-                     "", {})
-    for i, layer in enumerate(layers):
-        _flatten(layer, f"layers.{i}.", state)
-    want = LM(cfg, torch.device("meta")).state_dict()
+    last two Griffin blocks). Encoder-decoder: ``enc_blocks`` and
+    ``dec_blocks`` (leaves ``[n_layers, ...]``) into layers ``i`` of the
+    lists of the same names."""
+    if cfg.is_encdec:
+        depth = {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_layers}
+        groups = {key: [_index(tree[key], i) for i in range(depth[key])]
+                  for key in ENCDEC_STACKED}
+        skip = ENCDEC_STACKED
+    else:
+        plan = stack_plan(cfg)
+        layers = list(tree.get("head_layers", []))
+        layers += [_index(tree["blocks"][f"l{j}"], i)
+                   for i in range(plan.n_blocks)
+                   for j in range(len(plan.pattern))]
+        layers += list(tree.get("tail_layers", []))
+        groups = {"layers": layers}
+        skip = ("blocks", "head_layers", "tail_layers")
+    state = _flatten({k: v for k, v in tree.items() if k not in skip}, "", {})
+    for key, layers in groups.items():
+        for i, layer in enumerate(layers):
+            _flatten(layer, f"{key}.{i}.", state)
+    want = params_module(cfg, torch.device("meta")).state_dict()
     if set(state) != set(want):
         raise ValueError(f"parameter names differ: missing "
                          f"{sorted(set(want) - set(state))}, unexpected "
@@ -141,9 +155,11 @@ def _unstack(tree, cfg: ModelConfig) -> dict:
     return state
 
 
-def lm_params_from_numpy(tree, cfg: ModelConfig, device) -> LM:
-    """The reference's ``lm_init`` parameters (nested dict, numpy leaves)
-    → an :class:`LM` on ``device`` (``None`` means ``cuda``).
+def lm_params_from_numpy(tree, cfg: ModelConfig, device):
+    """The reference's ``lm_init`` (or ``encdec_init``) parameters (nested
+    dict, numpy leaves) → an :class:`~repro_torch.models.lm.LM` (or
+    :class:`~repro_torch.models.encdec.EncDec`) on ``device`` (``None``
+    means ``cuda``).
 
     The layers are unstacked as :func:`_unstack` says. Values are cast to
     each parameter's type: ``cfg.dtype``, except the leaves the reference
@@ -153,7 +169,7 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device) -> LM:
     Every parameter must be present and no other.
     """
     state = _unstack(tree, cfg)
-    params = LM(cfg, resolve_device(device))
+    params = params_module(cfg, resolve_device(device))
     with torch.no_grad():
         for name, t in params.state_dict().items():
             t.copy_(_array_to_tensor(state[name]).to(t.dtype))
@@ -170,21 +186,22 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def lm_params_to_numpy(params, cfg: ModelConfig) -> dict:
-    """The inverse of :func:`lm_params_from_numpy`: an :class:`LM`, or any
-    ``{parameter name: tensor}`` dict of it (gradients, moments), → the
-    reference's nested tree, the layers of ``stack_plan``'s blocks stacked
-    again ``[n_blocks, ...]`` under ``blocks/l{j}``. Leaves are numpy
-    arrays in the tensors' types, bf16 widened to f32."""
-    named = (dict(params.named_parameters()) if isinstance(params, LM)
-             else params)
-    plan = stack_plan(cfg)
-    plen, n_head = len(plan.pattern), len(plan.head)
+    """The inverse of :func:`lm_params_from_numpy`: an LM or EncDec, or any
+    ``{parameter name: tensor}`` dict of one (gradients, moments), → the
+    reference's nested tree, the layers it scans stacked again: an LM's
+    ``stack_plan`` blocks ``[n_blocks, ...]`` under ``blocks/l{j}``, an
+    encoder-decoder's ``enc_blocks`` and ``dec_blocks`` ``[n_layers,
+    ...]``. Leaves are numpy arrays in the tensors' types, bf16 widened to
+    f32."""
+    named = (params if isinstance(params, dict)
+             else dict(params.named_parameters()))
+    stacked = ENCDEC_STACKED if cfg.is_encdec else ("layers",)
     tree: dict = {}
-    layers: dict[int, dict] = {}
+    layers: dict[str, dict[int, dict]] = {k: {} for k in stacked}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            node = layers.setdefault(int(parts[1]), {})
+        if parts[0] in stacked:
+            node = layers[parts[0]].setdefault(int(parts[1]), {})
             parts = parts[2:]
         else:
             node = tree
@@ -196,6 +213,13 @@ def lm_params_to_numpy(params, cfg: ModelConfig) -> dict:
         return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
                 else np.stack([t[k] for t in trees]) for k in trees[0]}
 
+    if cfg.is_encdec:
+        for key, group in layers.items():
+            tree[key] = stack([group[i] for i in range(len(group))])
+        return tree
+    plan = stack_plan(cfg)
+    plen, n_head = len(plan.pattern), len(plan.head)
+    layers = layers["layers"]
     if plan.head:
         tree["head_layers"] = [layers[i] for i in range(n_head)]
     if plan.n_blocks:

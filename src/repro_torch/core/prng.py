@@ -7,10 +7,12 @@ from the same seed spawns the same vehicles with the same drivers:
 
 - a key is a ``[..., 2]`` int64 tensor holding two unsigned 32-bit words
   (``jax.random.key_data`` of a reference key);
-- ``key``, ``fold_in``, ``split``, ``random_bits``, ``uniform`` and
-  ``randint`` follow ``jax/_src/prng.py`` and ``jax/_src/random.py``
-  (partitionable ``random_bits``/``split``; ``uniform``'s mantissa trick
-  then ``max(minval, ·)``; ``randint``'s two bit draws and span arithmetic);
+- ``key``, ``fold_in``, ``split``, ``random_bits``, ``uniform``,
+  ``randint`` and ``normal`` follow ``jax/_src/prng.py`` and
+  ``jax/_src/random.py`` (partitionable ``random_bits``/``split``;
+  ``uniform``'s mantissa trick then ``max(minval, ·)``; ``randint``'s two
+  bit draws and span arithmetic; ``normal`` as ``sqrt(2)·erfinv`` of a
+  uniform on ``(nextafter(-1, 0), 1)``);
 - every function takes a batch of keys: leading key dimensions broadcast,
   the requested ``shape`` is appended after them.
 
@@ -21,6 +23,8 @@ masked back to 32 bits after every add, multiply and rotate.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.xmath import erf_inv
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -130,3 +134,39 @@ def randint(k: torch.Tensor, shape: tuple[int, ...], minval: int,
     off = (((higher % span) * mult) & M32) + (lower % span)
     off = (off & M32) % span
     return (minval + off).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# normal
+# --------------------------------------------------------------------------
+
+def normal(k: torch.Tensor, shape: tuple[int, ...] = (),
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.normal`` in float32 or bfloat16: ``[..., 2]`` keys →
+    ``[..., *shape]``.
+
+    float32: ``uniform`` on ``(nextafter(-1, 0), 1)``, then ``sqrt(2) ·
+    erf_inv`` with the reference compiler's polynomials and contractions
+    (within 2 ulps of the reference; almost all draws bit-equal).
+    bfloat16: the reference draws 8 bits an element (a bfloat16 has 7
+    mantissa bits), the low byte of the 32-bit draw; their top 7 bits make
+    the mantissa of a number in [1, 2), which gives the uniform on
+    ``(nextafter(-1, 0), 1)`` exactly; ``erf_inv`` is evaluated in float32
+    and rounded, then multiplied by ``sqrt(2)`` in bfloat16.
+    """
+    f32 = torch.float32
+    if dtype == f32:
+        lo = -0.99999994039535522   # nextafter(-1, 0) in float32
+        return erf_inv(uniform(k, shape, lo, 1.0)) * torch.tensor(
+            2.0 ** 0.5, dtype=f32, device=k.device)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"normal draws float32 or bfloat16, not {dtype}")
+    bf16 = torch.bfloat16
+    bits = random_bits(k, shape) & 0xFF
+    floats = ((bits >> 1) | 0x3F80).to(torch.int16).view(bf16) - 1.0
+    lo = torch.tensor(-1.0 + 2.0 ** -8, dtype=bf16, device=k.device)
+    # floats * (1 - lo) + lo: 1 - lo rounds to 2 in bfloat16; every step is
+    # exact in float32 and the sum is a bfloat16 number
+    u = torch.maximum(lo, (floats.float() * 2.0 + lo.float()).to(bf16))
+    return erf_inv(u.float()).to(bf16) * torch.tensor(2.0 ** 0.5, dtype=bf16,
+                                                        device=k.device)

@@ -8,9 +8,11 @@ once, train many times), or an in-process recording sweep through the same
 the batcher packs one flat token corpus into fixed-shape next-token
 windows, as tensors on the requested device (``cuda`` unless ``cpu``).
 
-The encoder-decoder ``frames`` and M-RoPE ``mrope_pos`` extras belong to
-model families the port does not have yet (ROADMAP queue 1 item 8): a
-config that needs them raises.
+A batch carries its family's extras as the reference's does
+(:func:`lm_extras`): an encoder-decoder's audio-stub ``frames`` (a normal
+draw from ``fold_in(key(seed), step)`` in the model's type; the sim stream
+conditions the decoder only) and an M-RoPE model's ``mrope_pos`` (three
+equal streams of the positions).
 """
 
 from __future__ import annotations
@@ -20,23 +22,29 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.record import RecordConfig
 from repro_torch.core.scenario import SimConfig
 from repro_torch.core.sweep import SweepConfig, SweepRunner
 from repro_torch.core.tokens import PAD, trace_token_streams, vocab_size
 from repro_torch.device import resolve_device
+from repro_torch.models.common import cdtype
 
 
-def check_lm_extras(cfg) -> None:
-    """Raise for a model config whose batches need extras the port cannot
-    make yet: encoder frames or M-RoPE positions (ROADMAP queue 1 item 8)."""
-    for need, what in ((cfg.is_encdec, "encoder-decoder 'frames'"),
-                       (bool(cfg.mrope_sections), "M-RoPE 'mrope_pos'")):
-        if need:
-            raise NotImplementedError(
-                f"{cfg.name}: batches with {what} are not ported; the "
-                "encoder-decoder and M-RoPE families are ROADMAP queue 1 "
-                "item 8")
+def lm_extras(cfg, batch: int, seq: int, frames_key: torch.Tensor) -> dict:
+    """The batch extras of ``cfg``'s family, on ``frames_key``'s device:
+    ``frames [batch, enc_ctx, d_model]`` = ``prng.normal(frames_key)`` in
+    the model's type for an encoder-decoder, ``mrope_pos [3, batch, seq]``
+    int32 (each stream ``0..seq-1``) for an M-RoPE config."""
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = prng.normal(frames_key,
+                                    (batch, cfg.enc_ctx, cfg.d_model),
+                                    cdtype(cfg))
+    if cfg.mrope_sections:
+        pos = torch.arange(seq, dtype=torch.int32, device=frames_key.device)
+        out["mrope_pos"] = pos.expand(3, batch, seq).contiguous()
+    return out
 
 
 def sim_token_corpus(
@@ -96,13 +104,13 @@ def sim_token_batches(
     device: str | torch.device | None = None,
 ) -> Iterator[dict]:
     """Fixed-shape ``{"tokens", "labels"}`` batches (i32 ``[batch, seq]``
-    on ``device``) over the sim corpus, wrapping around it forever.
+    on ``device``), with the family's extras (:func:`lm_extras`), over the
+    sim corpus, wrapping around it forever.
 
     ``shard_dir`` reads a :class:`~repro_torch.data.shards.DatasetWriter`
     directory; without it a small recording sweep runs in-process on
     ``device``. The model's vocabulary must cover the corpus's.
     """
-    check_lm_extras(cfg)
     dev = resolve_device(device)
     if shard_dir is not None:
         corpus, need_vocab = shard_token_corpus(shard_dir)
@@ -112,11 +120,13 @@ def sim_token_batches(
     if cfg.vocab_size < need_vocab:
         raise ValueError(
             f"model vocab {cfg.vocab_size} < sim token vocab {need_vocab}")
-    return _windows(corpus, batch, seq, start_step, dev)
+    return _windows(cfg, corpus, batch, seq, start_step,
+                    prng.key(seed, dev))
 
 
-def _windows(corpus: np.ndarray, batch: int, seq: int, step: int,
-             dev: torch.device) -> Iterator[dict]:
+def _windows(cfg, corpus: np.ndarray, batch: int, seq: int, step: int,
+             base: torch.Tensor) -> Iterator[dict]:
+    dev = base.device
     span = batch * (seq + 1)
     n = corpus.shape[0]
     while True:
@@ -127,5 +137,6 @@ def _windows(corpus: np.ndarray, batch: int, seq: int, step: int,
                             constant_values=PAD)
         arr = torch.from_numpy(
             window.reshape(batch, seq + 1).astype(np.int32)).to(dev)
-        yield {"tokens": arr[:, :-1], "labels": arr[:, 1:]}
+        yield {"tokens": arr[:, :-1], "labels": arr[:, 1:],
+               **lm_extras(cfg, batch, seq, prng.fold_in(base, step))}
         step += 1

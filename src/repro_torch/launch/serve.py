@@ -15,6 +15,10 @@ published configuration instead. Flags:
 
 It prints each request's tokens, the completion line and one line of
 timings (time to first token, prefill and decode tokens/s, host clock).
+An encoder-decoder (whisper) raises ``NotImplementedError``: the engine
+serves token requests only (:func:`repro_torch.serve.engine.check_servable`;
+the reference launcher fails on it with ``KeyError: 'frames'``); qwen2-vl
+is served as text, with plain RoPE, as the reference's engine serves it.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 
 from repro_torch.config.base import ServeConfig, get_arch, list_archs
 from repro_torch.models.registry import build_model
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, check_servable
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -55,6 +59,7 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = get_arch(args.arch)
     if not args.full_width:
         cfg = cfg.reduced()
+    check_servable(cfg)   # before the weights are drawn
     model = build_model(cfg, args.device)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(args.seed)

@@ -1,5 +1,6 @@
-"""The LM stack of the port: the dense GQA transformer families
-(``global``/``local`` layers), served through :class:`Model`."""
+"""The model stack of the port: the decoder-only families (attention,
+MLA, MoE, recurrent and rwkv layers; M-RoPE) and the encoder-decoder,
+served through :class:`Model`."""
 
 from repro_torch.models.registry import Model, build_model
 

@@ -1,7 +1,9 @@
 """Attention: GQA with RoPE, sliding windows, logit softcaps, and KV caches
 (ring-buffered for windowed layers); MLA with its latent cache and
-absorbed decode. Port of ``repro/models/attention.py``; cross attention
-comes with its family (ROADMAP queue 1).
+absorbed decode; cross attention (the encoder-decoder's). Port of
+``repro/models/attention.py``. With ``cfg.mrope_sections`` and an
+``mrope_pos [3, B, S]`` the rotary embedding is M-RoPE; without
+``mrope_pos`` it is plain RoPE, as the reference falls back to it.
 
 Layouts as the reference: activations ``[B, S, D]``; per-head tensors
 ``[B, S, H, hd]``; KV caches ``[B, S_cache, K, hd]`` with an entry-position
@@ -42,6 +44,7 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
 from repro_torch.models.common import (
     Norm,
+    apply_mrope,
     apply_rope,
     cdtype,
     dense_init,
@@ -236,12 +239,12 @@ def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
     return q, k, v
 
 
-def _rope_qk(cfg: ModelConfig, q, k, positions):
+def _rope_qk(cfg: ModelConfig, q, k, positions, mrope_pos=None):
     if cfg.rope_theta <= 0.0:
         return q, k
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE comes with the qwen2-vl slice (ROADMAP queue 1)")
+    if cfg.mrope_sections and mrope_pos is not None:
+        return (apply_mrope(q, mrope_pos, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, mrope_pos, cfg.rope_theta, cfg.mrope_sections))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -254,10 +257,11 @@ def _out(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                positions: torch.Tensor, kind: str = "global",
+               mrope_pos: torch.Tensor | None = None,
                causal: bool = True) -> torch.Tensor:
     """Full-sequence attention (train / prefill compute)."""
     q, k, v = _qkv(cfg, p, x)
-    q, k = _rope_qk(cfg, q, k, positions)
+    q, k = _rope_qk(cfg, q, k, positions, mrope_pos)
     window = cfg.window if kind == "local" else 0
     ctx = full_attention(q, k, v, causal=causal, window=window,
                          scale=cfg.head_dim**-0.5, cap=cfg.attn_logit_softcap)
@@ -282,12 +286,13 @@ def kv_cache_init(cfg: ModelConfig, batch: int, max_seq: int, kind: str,
 
 
 def attn_prefill(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                 positions: torch.Tensor, cache: dict, kind: str):
+                 positions: torch.Tensor, cache: dict, kind: str,
+                 mrope_pos: torch.Tensor | None = None):
     """Full-seq attention + fill the cache in place (ring-rolled for local
     layers whose window is shorter than the prompt)."""
     s = x.shape[1]
     q, k, v = _qkv(cfg, p, x)
-    q, k = _rope_qk(cfg, q, k, positions)
+    q, k = _rope_qk(cfg, q, k, positions, mrope_pos)
     window = cfg.window if kind == "local" else 0
     ctx = full_attention(q, k, v, causal=True, window=window,
                          scale=cfg.head_dim**-0.5, cap=cfg.attn_logit_softcap)
@@ -309,12 +314,13 @@ def attn_prefill(cfg: ModelConfig, p: Attention, x: torch.Tensor,
 
 
 def attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                pos: torch.Tensor, cache: dict, kind: str):
+                pos: torch.Tensor, cache: dict, kind: str,
+                mrope_pos: torch.Tensor | None = None):
     """Single-token decode against the cache (written in place).
-    x [B, 1, D], pos [B] current position."""
+    x [B, 1, D], pos [B] current position, mrope_pos [3, B, 1] or None."""
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x)
-    q, k = _rope_qk(cfg, q, k, pos[:, None])
+    q, k = _rope_qk(cfg, q, k, pos[:, None], mrope_pos)
 
     s_cache = cache["k"].shape[1]
     slot = (pos % s_cache).long()
@@ -331,6 +337,46 @@ def attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     ctx = sdpa(q, ck, cv, valid[:, None, :], cfg.head_dim**-0.5,
                cfg.attn_logit_softcap)
     return _out(ctx, p.wo), cache
+
+
+# --------------------------------------------------------------------------
+# cross attention (the encoder-decoder's decoder)
+# --------------------------------------------------------------------------
+
+class CrossAttention(nn.Module):
+    """``wq``, ``wk``, ``wv`` ``[d, H, hd]`` and ``wo`` ``[H, hd, d]``: K
+    and V have ``n_heads`` heads (no grouping), no bias, no RoPE."""
+
+    def __init__(self, cfg: ModelConfig, device) -> None:
+        super().__init__()
+        dt = cdtype(cfg)
+        d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+        self.wq = param((d, h, hd), dt, device)
+        self.wk = param((d, h, hd), dt, device)
+        self.wv = param((d, h, hd), dt, device)
+        self.wo = param((h, hd, d), dt, device)
+
+    def reset_parameters(self, generator) -> None:
+        d, h, hd = self.wq.shape
+        for w in (self.wq, self.wk, self.wv):
+            dense_init(w, d, generator)
+        dense_init(self.wo, h * hd, generator)
+
+
+def cross_attn_kv(cfg: ModelConfig, p: CrossAttention, enc: torch.Tensor):
+    """The encoder states' keys and values ``[B, T, H, hd]``, each a fresh
+    contiguous tensor (so the kernel takes it as it is)."""
+    return _proj(enc, p.wk), _proj(enc, p.wv)
+
+
+def cross_attn_apply(cfg: ModelConfig, p: CrossAttention, x: torch.Tensor,
+                     kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Non-causal attention of ``x [B, S, D]`` (S = 1 in decode) over the
+    encoder's ``kv``, through :func:`full_attention`."""
+    k, v = kv
+    ctx = full_attention(_proj(x, p.wq), k, v, causal=False, window=0,
+                         scale=cfg.head_dim**-0.5)
+    return _out(ctx, p.wo)
 
 
 # --------------------------------------------------------------------------

@@ -123,7 +123,8 @@ def _ffn_half(cfg: ModelConfig, p: Block, x: torch.Tensor):
 
 
 def block_apply(cfg: ModelConfig, p: Block, x: torch.Tensor,
-                positions: torch.Tensor, causal: bool = True):
+                positions: torch.Tensor,
+                mrope_pos: torch.Tensor | None = None, causal: bool = True):
     """Returns (x, moe_aux); the aux loss is 0 without MoE."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm(cfg, p.norm1, x)
@@ -136,7 +137,8 @@ def block_apply(cfg: ModelConfig, p: Block, x: torch.Tensor,
     elif cfg.use_mla:
         sub = mla_apply(cfg, p.mixer, h, positions)
     else:
-        sub = attn_apply(cfg, p.mixer, h, positions, p.kind, causal=causal)
+        sub = attn_apply(cfg, p.mixer, h, positions, p.kind,
+                         mrope_pos=mrope_pos, causal=causal)
     x = _residual(cfg, p, x, sub, "post_norm1")
     x, moe_aux = _ffn_half(cfg, p, x)
     return x, aux if moe_aux is None else moe_aux
@@ -155,7 +157,8 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
 
 
 def block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor,
-                  positions: torch.Tensor, cache: dict):
+                  positions: torch.Tensor, cache: dict,
+                  mrope_pos: torch.Tensor | None = None):
     """Full-seq compute + cache fill (in place). Recurrent kinds leave their
     final state in the cache."""
     h = norm(cfg, p.norm1, x)
@@ -170,14 +173,17 @@ def block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor,
     elif cfg.use_mla:
         sub, cache = mla_prefill(cfg, p.mixer, h, positions, cache)
     else:
-        sub, cache = attn_prefill(cfg, p.mixer, h, positions, cache, p.kind)
+        sub, cache = attn_prefill(cfg, p.mixer, h, positions, cache, p.kind,
+                                  mrope_pos)
     x = _residual(cfg, p, x, sub, "post_norm1")
     return _ffn_half(cfg, p, x)[0], cache
 
 
 def block_decode(cfg: ModelConfig, p: Block, x: torch.Tensor,
-                 pos: torch.Tensor, cache: dict):
-    """One token: x [B, 1, D], pos [B]; the cache is written in place."""
+                 pos: torch.Tensor, cache: dict,
+                 mrope_pos: torch.Tensor | None = None):
+    """One token: x [B, 1, D], pos [B], mrope_pos [3, B, 1] or None; the
+    cache is written in place."""
     h = norm(cfg, p.norm1, x)
     if p.kind == "rwkv":
         y, cache = rwkv_time_mix_step(cfg, p.time_mix, h, cache)
@@ -190,7 +196,8 @@ def block_decode(cfg: ModelConfig, p: Block, x: torch.Tensor,
     elif cfg.use_mla:
         sub, cache = mla_decode(cfg, p.mixer, h, pos, cache)
     else:
-        sub, cache = attn_decode(cfg, p.mixer, h, pos, cache, p.kind)
+        sub, cache = attn_decode(cfg, p.mixer, h, pos, cache, p.kind,
+                                 mrope_pos)
     x = _residual(cfg, p, x, sub, "post_norm1")
     return _ffn_half(cfg, p, x)[0], cache
 

@@ -15,10 +15,13 @@ numbers (a JAX key and a torch generator give different streams).
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.core import xmath
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -127,6 +130,51 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: [B, S, H, D]; positions: [3, B, S]
+    (temporal, height, width streams). ``sections`` are half-dim section
+    lengths summing to D // 2; section ``i`` takes its angles from stream
+    ``i``. With three equal streams this is :func:`apply_rope`."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # [half]
+    ang_each = positions[..., None].float() * freqs             # [3,B,S,half]
+    bounds = [0]
+    for sec in sections:
+        bounds.append(bounds[-1] + sec)
+    ang = torch.cat([ang_each[i, ..., bounds[i]:bounds[i + 1]]
+                     for i in range(len(sections))], dim=-1)    # [B,S,half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embedding at integer positions ``pos``
+    ``[...]`` → ``[..., d]`` f32: sines then cosines of ``pos · exp(-ln
+    10000 · i / (d/2 - 1))``. The frequencies are computed as the
+    reference's compiler computes them (the constant ``-ln 10000 / (d/2 -
+    1)`` folded first, then :func:`repro_torch.core.xmath.exp`), so they
+    are its float32 numbers bit for bit: an ulp of a frequency moves the
+    angle at position 1500 by about 2e-4."""
+    half = d // 2
+    coef = (torch.tensor(-math.log(10000.0), dtype=torch.float32)
+            / torch.tensor(half - 1, dtype=torch.float32))
+    scale = xmath.exp(coef * torch.arange(half, dtype=torch.float32))
+    ang = pos.float()[..., None] * scale.to(pos.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(n: int, d: int, device) -> torch.Tensor:
+    """The fixed sinusoidal table ``[n, d]`` f32 of positions 0..n-1."""
+    return sinusoidal_at(torch.arange(n, device=device), d)
 
 
 # --------------------------------------------------------------------------

@@ -156,9 +156,34 @@ def _keep_products(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def remat_call(fn, remat: str, *args):
+    """``fn(*args)``, rematerialised as ``remat`` says: ``"none"`` calls
+    it; ``"full"`` checkpoints it, keeping only its inputs; ``"dots"`` also
+    keeps the outputs of the products without batch dims (the reference's
+    ``checkpoint_dots_with_no_batch_dims``).
+
+    On the card the autograd engine recomputes a checkpoint on its own
+    thread, where this thread's context variables (``attention_impl``,
+    ``recurrence_impl``) are unset: the recomputation runs in a copy of
+    the context of this call."""
+    if remat == "none":
+        return fn(*args)
+    kw = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _keep_products)}
+          if remat == "dots" else {})
+    ctx = contextvars.copy_context()
+
+    def in_ctx(*a):
+        return ctx.copy().run(fn, *a)
+
+    return checkpoint(in_ctx, *args, use_reentrant=False, **kw)
+
+
 def lm_apply(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
-             positions: torch.Tensor | None = None, remat: str = "none"):
-    """Returns (logits [B,S,V] f32, moe_aux scalar)."""
+             positions: torch.Tensor | None = None,
+             mrope_pos: torch.Tensor | None = None, remat: str = "none"):
+    """Returns (logits [B,S,V] f32, moe_aux scalar); ``mrope_pos [3, B, S]``
+    selects M-RoPE in a config with ``mrope_sections``."""
     if remat not in REMAT:
         raise ValueError(f"remat is one of {REMAT}, not {remat!r}")
     x = embed_tokens(cfg, params.embed, tokens)
@@ -169,7 +194,7 @@ def lm_apply(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     def group(x, layers):
         a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for p in layers:
-            x, a = block_apply(cfg, p, x, positions)
+            x, a = block_apply(cfg, p, x, positions, mrope_pos)
             a_sum = a_sum + a
         return x, a_sum
 
@@ -181,22 +206,8 @@ def lm_apply(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                 + [(layers[i:i + cfg.pattern_len], remat != "none")
                    for i in stacked[::cfg.pattern_len]]
                 + [([p], False) for p in layers[stacked.stop:]])
-    kw = ({"context_fn": functools.partial(
-        create_selective_checkpoint_contexts, _keep_products)}
-          if remat == "dots" else {})
-    # On the card the autograd engine recomputes a checkpoint on its own
-    # thread, where this thread's context variables (attention_impl,
-    # recurrence_impl) are unset: recompute in a copy of this context.
-    fwd_ctx = contextvars.copy_context()
-
-    def in_fwd_ctx(x, seg):
-        return fwd_ctx.copy().run(group, x, seg)
-
     for seg, remat_seg in segments:
-        if remat_seg:
-            x, a = checkpoint(in_fwd_ctx, x, seg, use_reentrant=False, **kw)
-        else:
-            x, a = group(x, seg)
+        x, a = remat_call(group, remat if remat_seg else "none", x, seg)
         aux = aux + a
     x = norm(cfg, params.final_norm, x)
     logits = logits_from_hidden(cfg, params.embed,
@@ -211,14 +222,15 @@ def lm_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def lm_prefill(params: LM, cfg: ModelConfig, cache: list[dict],
-               tokens: torch.Tensor, positions: torch.Tensor | None = None):
+               tokens: torch.Tensor, positions: torch.Tensor | None = None,
+               mrope_pos: torch.Tensor | None = None):
     """Full-sequence prefill; returns (last-position logits [B,V], cache),
     the cache filled in place."""
     x = embed_tokens(cfg, params.embed, tokens)
     if positions is None:
         positions = _positions(x)
     for p, c in zip(params.layers, cache):
-        x, _ = block_prefill(cfg, p, x, positions, c)
+        x, _ = block_prefill(cfg, p, x, positions, c, mrope_pos)
     x = norm(cfg, params.final_norm, x[:, -1:])
     logits = logits_from_hidden(cfg, params.embed,
                                 getattr(params, "lm_head", None), x)
@@ -226,12 +238,13 @@ def lm_prefill(params: LM, cfg: ModelConfig, cache: list[dict],
 
 
 def lm_decode(params: LM, cfg: ModelConfig, cache: list[dict],
-              tokens: torch.Tensor, pos: torch.Tensor):
-    """One decode step: tokens [B], pos [B] → (logits [B, V] f32, cache),
-    the cache written in place."""
+              tokens: torch.Tensor, pos: torch.Tensor,
+              mrope_pos: torch.Tensor | None = None):
+    """One decode step: tokens [B], pos [B] (mrope_pos [3, B, 1] or None)
+    → (logits [B, V] f32, cache), the cache written in place."""
     x = embed_tokens(cfg, params.embed, tokens[:, None])
     for p, c in zip(params.layers, cache):
-        x, _ = block_decode(cfg, p, x, pos, c)
+        x, _ = block_decode(cfg, p, x, pos, c, mrope_pos)
     x = norm(cfg, params.final_norm, x)
     logits = logits_from_hidden(cfg, params.embed,
                                 getattr(params, "lm_head", None), x)

@@ -1,8 +1,15 @@
-"""Model facade: one (init / apply / init_cache / prefill / decode) API
-(port of ``repro/models/registry.py`` for the decoder-only families).
+"""Model facade: one (init / apply / init_cache / prefill / decode) API over
+every family (port of ``repro/models/registry.py``): decoder-only (dense,
+MoE, MLA, hybrid, rwkv) and encoder-decoder.
 
-Batch dict convention, as the reference: ``{"tokens": [B, S] int}``. The
-model runs on ``device`` (``None`` means ``cuda``, as everywhere in the
+Batch dict conventions, as the reference:
+
+- decoder-only: ``{"tokens": [B, S] int}``, plus ``"mrope_pos": [3, B, S]``
+  for the VLM backbone (M-RoPE; without it the model takes plain RoPE);
+- encoder-decoder: ``{"frames": [B, T, D]`` (the stub frontend's output),
+  ``"tokens": [B, S] int`` (the decoder side)``}``.
+
+The model runs on ``device`` (``None`` means ``cuda``, as everywhere in the
 port); its caches are made there, and :meth:`Model.init` draws the weights
 there from a ``torch.Generator`` on that device.
 """
@@ -15,7 +22,23 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as _encdec
 from repro_torch.models import lm as _lm
+
+
+def params_module(cfg: ModelConfig, device):
+    """The uninitialised parameter container of ``cfg``: an
+    :class:`~repro_torch.models.encdec.EncDec` or an
+    :class:`~repro_torch.models.lm.LM`."""
+    return (_encdec.EncDec if cfg.is_encdec else _lm.LM)(cfg, device)
+
+
+def reference_ranks(params, cfg: ModelConfig) -> dict[str, int]:
+    """Each parameter's rank in the reference's (stacked) tree, which
+    weight decay follows."""
+    if cfg.is_encdec:
+        return _encdec.reference_ranks(params)
+    return _lm.reference_ranks(params, cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,35 +46,48 @@ class Model:
     cfg: ModelConfig
     device: torch.device
 
-    def init(self, generator: torch.Generator) -> _lm.LM:
+    def init(self, generator: torch.Generator):
         gen_dev = torch.device(generator.device)
         if gen_dev.type != self.device.type or (
                 gen_dev.index is not None and gen_dev != self.device):
             raise ValueError(f"generator is on {gen_dev}, the model on "
                              f"{self.device}")
+        if self.cfg.is_encdec:
+            return _encdec.encdec_init(self.cfg, generator)
         return _lm.lm_init(self.cfg, generator)
 
-    def apply(self, params: _lm.LM, batch: dict, remat: str = "none"):
+    def apply(self, params, batch: dict, remat: str = "none"):
         """Returns (logits [B,S,V] f32, moe_aux); ``remat`` is ``"none"``,
         ``"full"`` or ``"dots"`` (:func:`repro_torch.models.lm.lm_apply`)."""
-        return _lm.lm_apply(params, self.cfg, batch["tokens"], remat=remat)
+        if self.cfg.is_encdec:
+            return _encdec.encdec_apply(params, self.cfg, batch["frames"],
+                                        batch["tokens"], remat=remat)
+        return _lm.lm_apply(params, self.cfg, batch["tokens"],
+                            mrope_pos=batch.get("mrope_pos"), remat=remat)
 
-    def init_cache(self, batch: int, max_seq: int) -> list[dict]:
+    def init_cache(self, batch: int, max_seq: int):
+        if self.cfg.is_encdec:
+            return _encdec.encdec_cache_init(self.cfg, batch, max_seq,
+                                             self.device)
         return _lm.lm_cache_init(self.cfg, batch, max_seq, self.device)
 
-    def prefill(self, params: _lm.LM, cache: list[dict], batch: dict):
+    def prefill(self, params, cache, batch: dict):
         """Returns (last-position logits [B, V] f32, cache)."""
-        return _lm.lm_prefill(params, self.cfg, cache, batch["tokens"])
+        if self.cfg.is_encdec:
+            return _encdec.encdec_prefill(params, self.cfg, cache,
+                                          batch["frames"], batch["tokens"])
+        return _lm.lm_prefill(params, self.cfg, cache, batch["tokens"],
+                              mrope_pos=batch.get("mrope_pos"))
 
-    def decode(self, params: _lm.LM, cache: list[dict], tokens: torch.Tensor,
-               pos: torch.Tensor):
-        """tokens [B], pos [B] → (logits [B, V] f32, cache)."""
-        return _lm.lm_decode(params, self.cfg, cache, tokens, pos)
+    def decode(self, params, cache, tokens: torch.Tensor, pos: torch.Tensor,
+               mrope_pos: torch.Tensor | None = None):
+        """tokens [B], pos [B] (mrope_pos [3, B, 1] or None) → (logits
+        [B, V] f32, cache)."""
+        if self.cfg.is_encdec:
+            return _encdec.encdec_decode(params, self.cfg, cache, tokens, pos)
+        return _lm.lm_decode(params, self.cfg, cache, tokens, pos,
+                             mrope_pos=mrope_pos)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            "encoder-decoder models (whisper) are not ported yet "
-            "(ROADMAP queue 1)")
     return Model(cfg, resolve_device(device))

@@ -1,5 +1,7 @@
 """Serving engine: prefill/decode + slot-based continuous batching (port of
-``repro/serve/engine.py``).
+``repro/serve/engine.py``). An encoder-decoder is served through
+:func:`greedy_generate` with ``extras={"frames": ...}``; the engine, whose
+requests are tokens alone, refuses it (the reference's fails on it).
 
 ``ServeEngine`` keeps a fixed pool of decode slots. Requests join free
 slots through a per-slot prefill on a 1-row cache that is then spliced
@@ -29,13 +31,18 @@ from repro_torch.models.registry import Model
 
 @torch.inference_mode()
 def greedy_generate(model: Model, params: Any, prompt: torch.Tensor,
-                    steps: int, max_seq: int | None = None) -> torch.Tensor:
+                    steps: int, max_seq: int | None = None,
+                    extras: dict | None = None) -> torch.Tensor:
     """Batched greedy generation (one prefill + a decode loop); returns
-    ``[B, steps]`` tokens, the prefill's token first."""
+    ``[B, steps]`` tokens, the prefill's token first. ``extras`` join the
+    prefill's batch only, as in the reference: an encoder-decoder's
+    ``frames``, a VLM's ``mrope_pos`` (decode then takes plain RoPE
+    positions, as the reference's decode is called without M-RoPE)."""
     b, s0 = prompt.shape
     max_seq = max_seq or (s0 + steps)
     cache = model.init_cache(b, max_seq)
-    logits, cache = model.prefill(params, cache, {"tokens": prompt})
+    logits, cache = model.prefill(params, cache,
+                                  {"tokens": prompt, **(extras or {})})
     tok = logits.argmax(dim=-1)
     toks = []
     for i in range(steps):
@@ -44,6 +51,19 @@ def greedy_generate(model: Model, params: Any, prompt: torch.Tensor,
         logits, cache = model.decode(params, cache, tok, pos)
         tok = logits.argmax(dim=-1)
     return torch.stack(toks, dim=1)
+
+
+def check_servable(cfg) -> None:
+    """Raise for a config the engine cannot serve: an encoder-decoder,
+    whose prefill needs ``frames`` where the engine's requests are tokens
+    alone. The reference's engine takes it and fails at its first prefill
+    with ``KeyError: 'frames'``; the port keeps that limit and says so."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the serving engine takes token requests only, and "
+            "an encoder-decoder's prefill needs 'frames' (the reference's "
+            "engine fails there with KeyError: 'frames'); serve it through "
+            "greedy_generate(..., extras={'frames': ...})")
 
 
 @dataclasses.dataclass
@@ -65,6 +85,7 @@ class ServeEngine:
     """
 
     def __init__(self, model: Model, params: Any, sc: ServeConfig) -> None:
+        check_servable(model.cfg)
         self.model = model
         self.params = params
         self.sc = sc

@@ -84,7 +84,7 @@ def adamw_update(grads: dict[str, torch.Tensor], state: AdamWState,
     gives each leaf's rank in the reference's tree where it is not the
     tensor's own: the reference stacks its scanned layers, so a norm scale
     of such a layer is a rank-2 leaf there and is decayed
-    (:func:`repro_torch.models.lm.reference_ranks`).
+    (:func:`repro_torch.models.registry.reference_ranks`).
     """
     grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
     step = state.step + 1

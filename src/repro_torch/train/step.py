@@ -16,9 +16,8 @@ import torch
 
 from repro_torch.config.base import TrainConfig
 from repro_torch.models.attention import attention_impl
-from repro_torch.models.lm import LM, reference_ranks
 from repro_torch.models.recurrent import recurrence_impl
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import Model, reference_ranks
 from repro_torch.train.optim import AdamWState, adamw_update
 
 
@@ -47,7 +46,7 @@ def make_loss_fn(model: Model, tc: TrainConfig) -> Callable:
     z-loss where set) plus, in an MoE model, ``moe_aux_weight`` times the
     layers' summed load-balance aux loss, reported as ``moe_aux``."""
 
-    def loss_fn(params: LM, batch: dict):
+    def loss_fn(params, batch: dict):
         logits, aux = model.apply(params, batch, remat=tc.remat)
         loss, metrics = cross_entropy_loss(logits, batch["labels"], tc.z_loss)
         if model.cfg.n_experts > 0:
@@ -60,15 +59,14 @@ def make_loss_fn(model: Model, tc: TrainConfig) -> Callable:
 
 
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
-    """[B, ...] → n batches of [B // n, ...], in order."""
-    if "mrope_pos" in batch:
-        raise NotImplementedError(
-            "M-RoPE batches ('mrope_pos') come with qwen2-vl (ROADMAP queue 1 "
-            "item 8)")
+    """[B, ...] → n batches of [B // n, ...], in order; ``mrope_pos``
+    ``[3, B, S]`` is split on its batch axis, 1."""
     b = batch["tokens"].shape[0]
     if b % n:
         raise ValueError(f"batch {b} does not split into {n} microbatches")
-    return [{k: v[i * (b // n):(i + 1) * (b // n)] for k, v in batch.items()}
+    m = b // n
+    return [{k: v[:, i * m:(i + 1) * m] if k == "mrope_pos"
+             else v[i * m:(i + 1) * m] for k, v in batch.items()}
             for i in range(n)]
 
 
@@ -78,7 +76,7 @@ def make_train_step(model: Model, tc: TrainConfig):
     recurrence paths, as the reference trains through XLA."""
     loss_fn = make_loss_fn(model, tc)
 
-    def grads_of(params: LM, names: list[str], leaves: list, batch: dict):
+    def grads_of(params, names: list[str], leaves: list, batch: dict):
         # the reference's training path: XLA attention and the scans, not
         # the Pallas kernels; here the plain paths, since the CUDA kernels
         # have no backward
@@ -88,7 +86,7 @@ def make_train_step(model: Model, tc: TrainConfig):
         return (dict(zip(names, grads)),
                 {k: v.detach() for k, v in metrics.items()})
 
-    def train_step(params: LM, opt_state: AdamWState, batch: dict):
+    def train_step(params, opt_state: AdamWState, batch: dict):
         params.requires_grad_(True)
         named = dict(params.named_parameters())
         names, leaves = list(named), list(named.values())

@@ -17,13 +17,12 @@ import torch
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.config.base import TrainConfig
-from repro_torch.models.lm import LM
 from repro_torch.models.registry import Model
 from repro_torch.train.optim import AdamWState, adamw_init
 from repro_torch.train.step import make_train_step
 
 
-def _tree(params: LM, opt_state: AdamWState) -> dict:
+def _tree(params, opt_state: AdamWState) -> dict:
     return {"params": dict(params.named_parameters()), "opt": opt_state}
 
 
@@ -73,7 +72,7 @@ class Trainer:
             self.log(f"[trainer] restored checkpoint at step {start}")
         return params, opt_state, start
 
-    def _save(self, step: int, params: LM, opt_state: AdamWState) -> None:
+    def _save(self, step: int, params, opt_state: AdamWState) -> None:
         t0 = time.perf_counter()
         self.ckpt.save(step, _tree(params, opt_state))
         self.saves.append({"step": step, "copy_s": time.perf_counter() - t0})

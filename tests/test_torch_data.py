@@ -6,7 +6,9 @@ reference's token for token.
 - ``sim_token_batches`` over an in-process recording sweep;
 - ``shard_token_corpus`` over shards the port wrote, read by both packages;
 - ``synthetic_batches`` (``walk`` and ``uniform``, from a start step);
-- the encoder-decoder and M-RoPE extras raise, naming ROADMAP queue 1 item 8.
+- the encoder-decoder and M-RoPE extras come with the batches (their
+  parity with the reference is in ``test_torch_encdec.py`` and
+  ``test_torch_mrope.py``).
 
 Token buckets cut the recorded float speeds, which may differ from the
 reference's in the last bit (see ``test_torch_simulator.py``); no speed of
@@ -168,14 +170,23 @@ def test_synthetic_batches_match_reference(pattern, start_step):
 
 
 def test_lm_extras_raise_until_their_families_are_ported():
+    """The families are ported: an encoder-decoder config's batches carry
+    ``frames [B, enc_ctx, d_model]`` in the model's type and an M-RoPE
+    config's ``mrope_pos [3, B, S]``, from both batchers, where they
+    raised before; a bad pattern or a too small vocabulary still raises."""
     base = get_arch(ARCH).reduced()
     sim = SimConfig(n_slots=16)
     for cfg in (dataclasses.replace(base, is_encdec=True),
                 dataclasses.replace(base, mrope_sections=(2, 3, 3))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            synthetic_batches(cfg, 2, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            sim_token_batches(cfg, sim, 2, 8, device="cpu")
+        for b in (next(synthetic_batches(cfg, 2, 8, device="cpu")),
+                  next(sim_token_batches(cfg, sim, 2, 8, n_instances=1,
+                                         device="cpu"))):
+            if cfg.is_encdec:
+                assert b["frames"].shape == (2, cfg.enc_ctx, cfg.d_model)
+                assert b["frames"].dtype == torch.bfloat16
+            else:
+                assert b["mrope_pos"].shape == (3, 2, 8)
+                assert b["mrope_pos"][2, 1].tolist() == list(range(8))
     with pytest.raises(ValueError, match="pattern"):
         synthetic_batches(base, 2, 8, pattern="zipf", device="cpu")
     small = dataclasses.replace(base, vocab_size=16)

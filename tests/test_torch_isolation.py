@@ -1,10 +1,13 @@
 """The port stands alone: importing every ``repro_torch`` module and running
 its sweep launcher (plain; recording with checkpoints, a dataset and
 injected faults; two blocks pipelined), its LM batches from that dataset
-and synthetic ones, its train launcher on both, its process controller
-and its serve launcher on the CPU (every served family, the MoE and MLA
-ones included) never loads ``jax`` or ``repro``; asking for ``cuda`` without a card
-raises instead of falling back to the CPU."""
+and synthetic ones, its train launcher on both (and on the
+encoder-decoder's and M-RoPE family's synthetic batches), its process
+controller, its serve launcher on the CPU (every served family, the MoE,
+MLA and M-RoPE ones included) and ``greedy_generate`` of the
+encoder-decoder with its stub frames never loads ``jax`` or ``repro``;
+asking for ``cuda`` without a card raises instead of falling back to the
+CPU."""
 
 import json
 import os
@@ -60,10 +63,27 @@ sys.argv = ["repro_torch.launch.controller", "--ckpt-dir", "ctl",
             "--steps", "10", "--chunk-steps", "10", "--slots", "8"]
 runpy.run_module("repro_torch.launch.controller", run_name="__main__")
 for arch in ("gemma2-2b", "recurrentgemma-2b", "rwkv6-3b", "olmoe-1b-7b",
-             "minicpm3-4b", "deepseek-v2-236b"):
+             "minicpm3-4b", "deepseek-v2-236b", "qwen2-vl-2b"):
     sys.argv = ["repro_torch.launch.serve", "--device", "cpu", "--arch",
                 arch, "--requests", "2", "--max-new", "3"]
     runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+for arch in ("whisper-large-v3", "qwen2-vl-2b"):
+    sys.argv = ["repro_torch.launch.train", "--device", "cpu", "--arch", arch,
+                "--steps", "1", "--batch", "2", "--seq", "8",
+                "--log-every", "1", "--data", "synthetic"]
+    runpy.run_module("repro_torch.launch.train", run_name="__main__")
+import torch
+from repro_torch.core import prng
+from repro_torch.models.frontends import audio_frames_stub
+from repro_torch.models.registry import build_model
+from repro_torch.serve.engine import greedy_generate
+wcfg = get_arch("whisper-large-v3").reduced()
+wm = build_model(wcfg, "cpu")
+toks = greedy_generate(wm, wm.init(torch.Generator().manual_seed(0)),
+                       torch.zeros((2, 3), dtype=torch.int64), 3, extras={
+                           "frames": audio_frames_stub(prng.key(0, "cpu"),
+                                                       wcfg, 2, 8)})
+print("[whisper] generated", list(toks.shape))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"modules": names, "leaked": leaked}))
@@ -96,13 +116,20 @@ def test_no_jax_or_reference_imports(tmp_path):
                  "repro_torch.launch.serve", "repro_torch.launch.mesh",
                  "repro_torch.data.sim_dataset", "repro_torch.data.synthetic",
                  "repro_torch.train.optim", "repro_torch.train.step",
-                 "repro_torch.train.trainer", "repro_torch.launch.train"):
+                 "repro_torch.train.trainer", "repro_torch.launch.train",
+                 "repro_torch.models.encdec", "repro_torch.models.frontends",
+                 "repro_torch.core.xmath",
+                 "repro_torch.configs.whisper_large_v3",
+                 "repro_torch.configs.qwen2_vl_2b",
+                 "repro_torch.configs.gemma2_9b"):
         assert name in result["modules"]
     assert proc.stdout.count("[trainer] step 3/3") == 2
     for data in ("synthetic", "sim"):
         assert (tmp_path / f"train_ck_{data}" / "step_000000003"
                 / "manifest.json").exists()
-    assert proc.stdout.count("[serve] completed 2/2 requests") == 6
+    assert proc.stdout.count("[serve] completed 2/2 requests") == 7
+    assert proc.stdout.count("[trainer] step 1/1") == 2
+    assert "[whisper] generated [2, 3]" in proc.stdout
     records = json.loads(out.read_text())["records"]
     assert len(records) == 4 and all(r["steps"] == 20 for r in records)
     manifest = json.loads((tmp_path / "ds" / "manifest.json").read_text())
@@ -150,11 +177,13 @@ def test_cuda_request_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         serve_launcher.main(["--requests", "1"])
     for arch in ("gemma2-2b", "recurrentgemma-2b", "rwkv6-3b", "olmoe-1b-7b",
-                 "minicpm3-4b", "deepseek-v2-236b"):
+                 "minicpm3-4b", "deepseek-v2-236b", "whisper-large-v3",
+                 "qwen2-vl-2b", "gemma2-9b"):
         with pytest.raises(RuntimeError, match="cuda"):
             build_model(get_arch(arch).reduced())
-        with pytest.raises(RuntimeError, match="cuda"):
-            serve_launcher.main(["--arch", arch, "--requests", "1"])
+        if arch != "whisper-large-v3":   # refused before any device
+            with pytest.raises(RuntimeError, match="cuda"):
+                serve_launcher.main(["--arch", arch, "--requests", "1"])
         with pytest.raises(RuntimeError, match="cuda"):
             train_launcher.main(["--arch", arch, "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -332,6 +332,11 @@ def rand_qkv(seed, dev, dtype, b, sq, sk, h, kh, d, q_scale=1.0):
     (1, 129, 4000, 8, 4, 256, True, 0, 50.0),   # end-aligned, Sq << Sk
     (1, 300, 300, 4, 2, 64, True, 96, 0.0),     # D 64, window and causal
     (1, 300, 300, 4, 2, 128, True, 96, 0.0),    # D 128, window and causal
+    # the encoder-decoder's and qwen2-vl's shapes
+    (1, 1500, 1500, 20, 20, 64, False, 0, 0.0),  # whisper encoder
+    (4, 224, 1500, 20, 20, 64, False, 0, 0.0),  # cross attention, Sq != Sk
+    (4, 1, 1500, 20, 20, 64, False, 0, 0.0),    # decode cross: one query row
+    (1, 600, 600, 12, 2, 128, True, 0, 0.0),    # qwen2-vl GQA 6:1, D 128
 ])
 def test_flash_attention_matches_plain(cuda, b, sq, sk, h, kh, d, causal,
                                        window, cap, dtype):

@@ -6,7 +6,10 @@ QKV bias, silu), ``recurrentgemma-2b`` (two Griffin blocks then one local
 MQA layer), ``rwkv6-3b`` (time mix + channel mix, layer norms),
 ``olmoe-1b-7b`` (MoE with QK-norm), ``minicpm3-4b`` (MLA, tied embeddings
 scaled by 12) and ``deepseek-v2-236b`` (MLA, a dense first layer, then MoE
-with a shared expert): the reference's seeded parameters, with every norm
+with a shared expert), ``gemma2-9b`` (as gemma2-2b, GQA 16:8 at full
+width) and ``qwen2-vl-2b`` as text (no ``mrope_pos``: plain RoPE, as the
+reference falls back to it; M-RoPE is ``test_torch_mrope.py``): the
+reference's seeded parameters, with every norm
 scale and bias redrawn with numpy so that none is the identity, are
 carried across by ``repro_torch.convert.lm_params_from_numpy``; the same
 numpy tokens then go through ``Model.apply`` (logits and the MoE aux
@@ -120,7 +123,9 @@ CASES = [("gemma2-2b", "float32", {}), ("gemma2-2b", "bfloat16", {}),
          ("olmoe-1b-7b", "float32", {}), ("olmoe-1b-7b", "bfloat16", {}),
          ("minicpm3-4b", "float32", {}), ("minicpm3-4b", "bfloat16", {}),
          ("deepseek-v2-236b", "float32", {}),
-         ("deepseek-v2-236b", "bfloat16", {})]
+         ("deepseek-v2-236b", "bfloat16", {}),
+         ("gemma2-9b", "float32", {}), ("gemma2-9b", "bfloat16", {}),
+         ("qwen2-vl-2b", "float32", {}), ("qwen2-vl-2b", "bfloat16", {})]
 
 
 @pytest.mark.parametrize("arch,dtype,overrides", CASES)

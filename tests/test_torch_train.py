@@ -304,8 +304,12 @@ def test_unported_batches_and_losses_raise():
     assert [p["tokens"].shape for p in parts] == [(2, 8), (2, 8)]
     with pytest.raises(ValueError, match="3 microbatches"):
         _split_microbatches(batch, 3)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _split_microbatches(dict(batch, mrope_pos=batch["tokens"]), 2)
+    # M-RoPE positions [3, B, S] split on their batch axis (they raised
+    # before the qwen2-vl family was ported)
+    mrope = torch.arange(3 * 4 * 8).reshape(3, 4, 8)
+    parts = _split_microbatches(dict(batch, mrope_pos=mrope), 2)
+    assert [p["mrope_pos"].shape for p in parts] == [(3, 2, 8), (3, 2, 8)]
+    assert torch.equal(parts[1]["mrope_pos"], mrope[:, 2:])
     # the MoE loss adds moe_aux_weight times the layers' aux loss (it
     # raised before the MoE families were ported)
     moe = build_model(get_arch("olmoe-1b-7b").reduced(dtype="float32"), "cpu")

@@ -185,6 +185,63 @@ def _held_within_noise(got, want, steps, lr, m_got=None, m_want=None):
     return bool(ok.all()), float(diff.max()), int(noise.sum())
 
 
+def assert_train_step_matches(jm, jp, tm, tp, batches):
+    """The loss and every gradient leaf at ``batches[0]`` (a dict of numpy
+    arrays: tokens, labels and the family's extras) as
+    :func:`test_loss_and_every_gradient_leaf_match_reference` holds them,
+    then one step per batch in 2 microbatches at weight decay 0.1: each
+    step's loss and gradient norm, and the parameters after the first step
+    within the first-step noise (:func:`_held_within_noise`)."""
+
+    def jb(b):
+        return {k: jnp.asarray(v) for k, v in b.items()}
+
+    def tb(b):
+        return {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
+
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        jax_make_loss_fn(jm, JaxTrainConfig()), has_aux=True))(
+            jp, jb(batches[0]))
+    tp.requires_grad_(True)
+    named = dict(tp.named_parameters())
+    with attention_impl("xla"), recurrence_impl("plain"):
+        loss, _ = make_loss_fn(tm, TrainConfig())(tp, tb(batches[0]))
+        grads = torch.autograd.grad(loss, list(named.values()))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    got = lm_params_to_numpy(dict(zip(named, grads)), tm.cfg)
+    assert jax.tree.structure(got) == jax.tree.structure(jgrads)
+    for (path, want), (_, g) in zip(_leaves(jgrads), _leaves(got)):
+        want = np.asarray(want)
+        atol = 1e-6
+        if jax.tree_util.keystr(path) == "['embed']['table']":
+            atol = 1e-6 + 1e-4 * np.abs(want).max(axis=1, keepdims=True)
+        assert np.all(np.abs(g - want) <= atol + 1e-4 * np.abs(want)), (
+            jax.tree_util.keystr(path), float(np.abs(g - want).max()))
+    kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10,
+              weight_decay=0.1, microbatches=2)
+    jstep = jax.jit(jax_make_train_step(jm, JaxTrainConfig(**kw)))
+    step = make_train_step(tm, TrainConfig(**kw))
+    jstate = jax_adamw_init(jp)
+    state = adamw_init(dict(tp.named_parameters()))
+    for i, b in enumerate(batches):
+        jp, jstate, jmetrics = jstep(jp, jstate, jb(b))
+        tp, state, metrics = step(tp, state, tb(b))
+        np.testing.assert_allclose(float(metrics["loss"]),
+                                   float(jmetrics["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(metrics["grad_norm"]),
+                                   float(jmetrics["grad_norm"]), rtol=1e-4)
+        if i:
+            continue
+        moments = zip(jax.tree.leaves(lm_params_to_numpy(state.m, tm.cfg)),
+                      jax.tree.leaves(jstate.m))
+        for (path, want), (_, g), (m_got, m_want) in zip(
+                _leaves(jp), _leaves(lm_params_to_numpy(tp, tm.cfg)),
+                moments):
+            ok, worst, _ = _held_within_noise(
+                g, np.asarray(want), 1, 1e-3, m_got, np.asarray(m_want))
+            assert ok, (jax.tree_util.keystr(path), worst)
+
+
 @pytest.mark.parametrize("microbatches", [1, 2])
 def test_train_steps_match_reference(microbatches):
     """3 steps of make_train_step at weight_decay 0.1, with a cosine
