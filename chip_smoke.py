@@ -35,7 +35,7 @@ Phases, in order; any failure raises and exits non-zero:
    launch count must equal 2 x chunk_steps x the batched chunk calls made;
 5. reference — a small sweep on the card (``cuda`` impl) against the same
    sweep on the CPU (``sort`` impl): integer counters equal, floats close;
-6. parity — 64 instances, 400 steps: the ``cuda`` and ``sort`` impls on the
+6. parity — 64 instances, 200 steps: the ``cuda`` and ``sort`` impls on the
    card must give a bit-identical final ``SweepState``;
 6a. blocks — phase 6's sweep through 2 and 4 blocks on one card
    (``devices=[cuda:0] * k``, a stream each) and, where there are as many
@@ -49,13 +49,15 @@ Phases, in order; any failure raises and exits non-zero:
    share of the profiled wall time and of the unprofiled step, and the
    heaviest kernels;
 7a. record — the recording sweep in-process on the card (64 instances, 128
-   slots, 400 steps in chunks of 100, the four-scenario mix, grouped,
+   slots, 200 steps in chunks of 50, the four-scenario mix, grouped,
    ``cuda`` neighbors, a row every 10 steps, 8 recorded slots): a
    fault-free ``run_supervised`` with a ``DatasetWriter`` and checkpoints
    (neighbor launches = 2 x chunk_steps x its batched chunk calls), and the
    same sweep under ``FaultModel.random_model`` (crashes, hangs,
-   stragglers, one poison instance; 8 workers) killed after chunk 2 and
-   resumed from its checkpoint and journal; the final states and every
+   stragglers, one poison instance; 8 workers) killed after its third
+   chunk, before its last (asserted), and resumed from its checkpoint and
+   journal, its journal holding every fault kind (asserted); the final
+   states and every
    array of every shard must agree, bit for bit (or, where the card gives
    other bits, naming the field, within the CPU sweep tests' tolerance),
    on every instance but the poison one, which must be quarantined; and
@@ -215,7 +217,7 @@ streams of 2048 tokens from the vision stub through ``greedy_generate``
 with their positions (flash once per layer; the logits moved from plain
 RoPE's), with phase 11 on that prefill. gemma2-9b at its published widths
 cut to one local and one global layer runs phase 11 at 5000 tokens. The
-script prints these phases' seconds.
+script prints these phases' seconds, and at the end every phase's.
 
 The second-to-last lines are the kernels JSON and the ``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -245,11 +247,15 @@ N_LANES = 4                       # 3 main lanes + ramp, as the sweep
 # sweep's full depth of 1200 steps runs recorded, faulted and gated in 7b
 SWEEP = dict(instances=1024, slots=128, steps=400, chunk_steps=200)
 # phase 6: the cuda = sort parity sweep, which phase 6a replays through
-# blocks and phase 7a records
-PARITY = dict(instances=64, steps=400)
+# blocks and phase 7a records. Its depth sets the time of all three phases,
+# gates over host-bound sweeps: at 200 steps every gate holds, and 7a's
+# faulted run (four chunks of 50, killed after the third) still draws a
+# crash, a hang, a straggler and the poison instance's failures, which 7a
+# asserts
+PARITY = dict(instances=64, steps=200)
 # phase 7a: a fault-free and a faulted, killed and resumed recording sweep
 RECORD = dict(instances=PARITY["instances"], slots=128,
-              steps=PARITY["steps"], chunk_steps=100,
+              steps=PARITY["steps"], chunk_steps=50,
               record_every=10, k_slots=8, workers=8, shard_size=16, poison=37)
 # phase 7b: the controller over the full-size recording sweep, chunks of 200
 # steps (six chunks, so both chaos kills land mid-run), 8 workers (the
@@ -724,7 +730,8 @@ def record_phase(torch, idm, plain) -> dict:
     A fault-free ``run_supervised`` with a ``DatasetWriter`` and
     checkpoints, and the same sweep under ``FaultModel.random_model``
     (crashes, hangs, stragglers, one poison instance) killed after chunk
-    2 and resumed from its checkpoint and journal: their final states and
+    2, before its last (asserted), and resumed from its checkpoint and
+    journal, which must hold every fault kind: their final states and
     every array of every shard must agree on every instance that the
     faulted run did not quarantine, and the poison instance must be
     reported quarantined. Recording on and off must give the same final
@@ -815,6 +822,10 @@ def record_phase(torch, idm, plain) -> dict:
 
     clean, info, clean_s, launches, calls = clean_run("clean", False)
     faulted, info_f, first, fault_s, events = faulted_run("fault", False)
+    if first["completion_rate"] >= 1.0:
+        raise AssertionError("faulted recording run: the kill after "
+                             f"{first['chunks_run']} chunks came after its "
+                             "last chunk")
     kinds = [e.get("fault", e["kind"]) for e in events]
     for kind in ("crash", "hang", "straggler", "poison", "quarantine",
                  "resume"):
@@ -2742,6 +2753,15 @@ def main() -> None:
     from repro_torch.kernels import rwkv6 as rw
     from repro_torch.launch import sweep as launcher
 
+    # seconds of each phase, printed at the end
+    phase_s: dict[str, float] = {}
+    t_mark = [time.perf_counter()]
+
+    def done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+
     # 1. card
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -2761,6 +2781,7 @@ def main() -> None:
               for n in ("idm", "flash_attention", "rglru", "wkv6")}
     builds["idm"].result()
     log(f"built {SOURCE} for sm_90a in {time.perf_counter() - t0:.2f} s")
+    done("1-2 card, build idm.cu")
 
     # 3. kernels against their plain versions
     nb_results, idm_results = kernel_phase(torch, idm, ref)
@@ -2770,6 +2791,7 @@ def main() -> None:
     log(f"built {FLASH_SOURCE}, {RGLRU_SOURCE} and {WKV6_SOURCE} for sm_90a "
         f"while phase 3 ran: all four ready {time.perf_counter() - t0:.2f} s "
         "after the build started")
+    done("3 kernels")
 
     # 4. the sweep at full size through the launcher
     argv = [
@@ -2815,6 +2837,7 @@ def main() -> None:
         f"{veh_steps / wall:.1f} vehicle-steps/s ({veh_steps:.0f} active "
         f"vehicle-steps), neighbor_kernel launches {counts['neighbor_kernel']}"
         f" = 2 x {SWEEP['chunk_steps']} x {res['group_calls']} group calls")
+    done("4 sweep")
 
     # 5. a small sweep on the card against the same sweep on the CPU
     small = ["--instances", "8", "--slots", "16", "--steps", "120",
@@ -2831,6 +2854,7 @@ def main() -> None:
             np.testing.assert_array_equal(x, y, err_msg=f"metrics.{name}")
     log("reference: 8-instance sweep on the card (cuda impl) matches the CPU "
         "(sort impl): counters equal, floats within rtol 1e-5")
+    done("5 reference")
 
     # 6. cuda == sort on the card, bit for bit
     parity = ["--instances", str(PARITY["instances"]), "--slots",
@@ -2843,20 +2867,27 @@ def main() -> None:
     states_equal(torch, a["state"], b["state"])
     log("parity: cuda and sort give a bit-identical final SweepState "
         f"({PARITY['instances']} instances, {PARITY['steps']} steps)")
+    done("6 parity")
 
     # 6a. the same sweep through blocks, and phase 4's through 2 blocks
     blocks = blocks_phase(torch, idm, a["state"], sweep)
+    done("6a blocks")
 
     # 7. where a group call's time goes
     profile_phase(torch)
+    done("7 profile")
 
     # 7a. the recording, checkpointed, supervised sweep in-process; 7b. the
     # controller over the full-size recording sweep (the gate)
     record = record_phase(torch, idm, a["state"])
+    done("7a record")
     pipeline = pipeline_phase(torch, sweep)
+    done("7b pipeline")
     # 7c. the LM inputs of 7b's dataset; 7d. training on it
     tokens_phase(torch, pipeline["dataset"])
+    done("7c tokens")
     train = train_phase(torch, pipeline["dataset"], (idm, fa, rg, rw))
+    done("7d train")
 
     main_nb = nb_results[0]
     main_idm = idm_results[0]
@@ -2900,9 +2931,11 @@ def main() -> None:
         raise AssertionError(f"flash_attention bf16: {margin['crossed']} of "
                              f"{margin['draws']} q x 20 draws cross the "
                              "tolerance")
+    done("8 attention")
 
     # 9. the recurrence kernels against their plain versions
     rg_results, rw_results = recurrence_phase(torch, rg, rw, ref)
+    done("9 recurrences")
 
     # 10-13 for each served model: serve, serve vs plain, profile,
     # engine = greedy; each model is freed before the next
@@ -2919,6 +2952,7 @@ def main() -> None:
         del model32, params32
         torch.cuda.empty_cache()
         served[arch] = out
+    done("10-13 gemma2-2b, recurrentgemma-2b, rwkv6-3b")
     # the same for the MoE and MLA families, shorter (SERVE_MOE_MLA), then
     # deepseek-v2-236b cut to 2 layers through phase 11
     t_new = time.perf_counter()
@@ -2941,6 +2975,7 @@ def main() -> None:
     deepseek = cut_model_phase(torch, fa, **DEEPSEEK)
     log(f"serve: the MoE and MLA families (phases 10-13 and deepseek's 11) "
         f"in {time.perf_counter() - t_new:.1f} s")
+    done("10-13 olmoe-1b-7b, minicpm3-4b, deepseek-v2-236b")
     # the encoder-decoder and M-RoPE families, then gemma2-9b cut to 2
     # layers through phase 11
     whisper = whisper_phase(torch, fa)
@@ -2961,6 +2996,7 @@ def main() -> None:
         f"{out['phase_s']:.1f} s")
     served[QWEN_VL["arch"]] = out
     gemma9 = cut_model_phase(torch, fa, **GEMMA9)
+    done("whisper-large-v3, qwen2-vl-2b, gemma2-9b")
     train_new_s = sum(train["small"][a]["arch_s"]
                       for a in ("whisper-large-v3", "qwen2-vl-2b"))
     new_s = {"phase 8 new shapes": flash_new_s, "whisper-large-v3":
@@ -3019,6 +3055,9 @@ def main() -> None:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=None, shapes=rows, serve=served[arch]))
 
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items())
+        + f"; the script {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
