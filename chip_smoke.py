@@ -105,8 +105,10 @@ Phases, in order; any failure raises and exits non-zero:
    moments) through ``python -m repro_torch.launch.train``'s ``main`` on
    7b's dataset: 4 steps of 8 x 4096 in 4 microbatches, ``--remat full``,
    a checkpoint; every loss finite, step 4's below step 1's; prints per
-   step the seconds, tokens/s, loss and model FLOPs share (6·N·tokens/s
-   over the bf16 dense peak), the peak memory, the checkpoint's bytes and
+   step the seconds, tokens/s, loss and model FLOPs share
+   (``launch/roofline.py::model_flops``, 6 x the active non-embedding
+   parameters x tokens/s, over the bf16 dense peak; the share by all
+   parameters beside it), the peak memory, the checkpoint's bytes and
    save seconds, and one more step under ``torch.profiler`` (device busy
    share, heaviest kernels), each with the card's name and power limit;
 8. attention — ``flash_attention`` against ``ref_attention`` at gemma2-2b's
@@ -217,10 +219,27 @@ streams of 2048 tokens from the vision stub through ``greedy_generate``
 with their positions (flash once per layer; the logits moved from plain
 RoPE's), with phase 11 on that prefill. gemma2-9b at its published widths
 cut to one local and one global layer runs phase 11 at 5000 tokens. The
-script prints these phases' seconds, and at the end every phase's.
+script prints these phases' seconds.
 
-The second-to-last lines are the kernels JSON and the ``nvidia-smi`` line;
-the last line is ``{"ok": true, "device": {...}}``.
+14. dryrun — the dry-run tooling (``launch/{costing,dryrun,roofline}.py``,
+   ``sharding``) held against the card (``DRYRUN``, ``dryrun_phase``):
+   (a) building qwen1.5-0.5b's bf16 parameters and f32 AdamW state asks
+   the allocator for the one-card plan's bytes (``plan_bytes``) within
+   512 bytes a tensor; (b) the costing's ``meta`` FLOPs equal
+   ``FlopCounterMode``'s on the card exactly, for one 2 x 4096 microbatch
+   of 7d(c)'s step (forward and backward, plain attention, remat full) and
+   for gemma2-2b's 6000-token prefill through the kernels (the card's
+   aten count plus the flash formula for each of its 26 launches); (c)
+   prints the roofline terms and bound of 7d(c)'s step and of phase 12's
+   prefills at the H100's rates beside their measured times
+   (``roofline_mfu``, the bound over the time), the model FLOPs shares and
+   7d(c)'s predicted and measured peak memory; (d) prints
+   deepseek-v2-236b's serving plan at its 60 layers on meshes of 1, 4 and
+   8 cards. The ``meta`` counts (``dryrun_counts``, ~40 s of host time)
+   run in a spawned process of their own from phase 5 on.
+
+The script prints every phase's seconds, then the kernels JSON and the
+``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -237,10 +256,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and
-# non-tensor-core float32 rate
-MEM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 N_LANES = 4                       # 3 main lanes + ramp, as the sweep
 # phase 4: the sweep at full width for 400 steps in two chunks of 200 (7b's
 # chunks; every chunk steps all instances, so its rate is the sweep's); the
@@ -297,8 +312,6 @@ SOURCE = "src/repro_torch/kernels/csrc/idm.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 RGLRU_SOURCE = "src/repro_torch/kernels/csrc/rglru.cu"
 WKV6_SOURCE = "src/repro_torch/kernels/csrc/wkv6.cu"
-# dense tensor-core peaks of an H100 SXM (NVIDIA data sheet), by input type
-TENSOR_OPS_PER_S = {"bfloat16": 989e12, "float32": 495e12}  # f32 via TF32
 FLASH_TOL = {"bfloat16": dict(rtol=2e-2, atol=8e-3),
              "float32": dict(rtol=2e-3, atol=2e-4)}
 FLASH_MARGIN_DRAWS = 64
@@ -337,6 +350,21 @@ WHISPER = dict(arch="whisper-large-v3", batch=4, frames=1500, prompt=224,
 # positions, 16 new tokens, phase 11 on that prefill
 QWEN_VL = dict(arch="qwen2-vl-2b", plain_n=6000, streams=4, stream_len=2048,
                new=16)
+# phase 14: the dry-run tooling held against the card. (a) the sharding
+# plan's one-card bytes of qwen1.5-0.5b's parameters and AdamW state
+# against what building them asks of the allocator; (b) the costing's meta count of one
+# microbatch of 7d(c)'s step and of gemma2-2b's 6000-token prefill against
+# FlopCounterMode on the card; (c) the roofline beside 7d(c)'s step and
+# phase 12's prefills; (d) deepseek-v2-236b's serving plan at its 60 layers
+# (4 slots of 4096 tokens) on meshes of 1, 4 and 8 cards. The meta counts
+# take ~40 s of host time, so a process of their own computes them while
+# the card runs phases 5-13 (``dryrun_counts``)
+DRYRUN = dict(arch="qwen1.5-0.5b", microbatch=2, prefill_arch="gemma2-2b",
+              prefill=6000, plan_arch="deepseek-v2-236b", serve_batch=4,
+              serve_seq=4096,
+              meshes=((1, 1), (1, 4), (4, 1), (1, 8), (8, 1)))
+# phase 14(a)'s tolerance a tensor: the caching allocator's size unit
+ALLOC_ROUND = 512
 # phase 8 at the shapes the encoder-decoder and qwen2-vl give the kernel (the
 # encoder at B 1 and at WHISPER's 4 rows, the decoder's prompt, its cross
 # attention and its decode step's; qwen2-vl's longest prompts and its M-RoPE
@@ -483,24 +511,9 @@ def query_rows(gen, mode: str, b: int, q: int, n: int, lane):
                          device=lane.device, dtype=torch.int32)
 
 
-def sort_search_ops(b: int, n: int, searches: int) -> int:
-    """Comparisons the lead/follower search needs at least: a comparison
-    sort of each instance's n keys (n log2 n) and one binary search (log2
-    n) for each of ``searches`` queries a slot. The all-pairs form's n^2
-    pair tests are one way to answer, not work the function needs."""
-    lg = max(1, (n - 1).bit_length())
-    return b * n * lg * (1 + searches)
-
-
-def bound(bytes_moved: float, ops: float,
-          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = bytes_moved / MEM_BYTES_PER_S
-    t_ops = ops / ops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def kernel_phase(torch, idm, ref):
+    from repro_torch.launch.costing import bound, idm_accel_cost, neighbor_cost
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     b_main = SWEEP["instances"] // 4
@@ -539,9 +552,7 @@ def kernel_phase(torch, idm, ref):
                                                    n_rows=n_rows, veh_len=4.5))
         plain_ms = device_ms(lambda: ref.ref_neighbor_mq(
             pos, lane, active, ql, 4.5, n_rows=n_rows), reps=2)
-        bytes_moved = (b * n * (4 + 4 + 1) + b * q * n * 18
-                       + (0 if ql is None else b * q * n * 4))
-        ops = sort_search_ops(b, n, q)
+        ops, bytes_moved = neighbor_cost(b, n, q, ql is not None)
         bound_ms, bound_by = bound(bytes_moved, ops)
         results.append(dict(B=b, N=n, Q=q, rows=mode, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
@@ -580,9 +591,7 @@ def kernel_phase(torch, idm, ref):
         wide_ms = (device_ms(lambda: idm._idm_accel_wide(*args, veh_len=4.5))
                    if form == "sort" else ms)
         plain_ms = device_ms(lambda: ref.ref_idm_accel(*args, 4.5), reps=2)
-        bytes_moved = b * n * (7 * 4 + 4 + 1) + b * n * 4
-        # one own-lane search an ego, then the IDM formula's 16 operations
-        ops = sort_search_ops(b, n, 1) + 16 * b * n
+        ops, bytes_moved = idm_accel_cost(b, n)
         bound_ms, bound_by = bound(bytes_moved, ops)
         idm_results.append(dict(B=b, N=n, form=form, max_abs_err=err, ms=ms,
                                 all_pairs_ms=wide_ms, plain_ms=plain_ms,
@@ -1310,9 +1319,10 @@ def train_phase(torch, ds, counters) -> dict:
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.config.base import TrainConfig, get_arch
+    from repro_torch.config.base import ShapeConfig, TrainConfig, get_arch
     from repro_torch.data.synthetic import synthetic_batches
     from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.roofline import PEAK_FLOPS, model_flops
     from repro_torch.models.registry import build_model
     from repro_torch.train.trainer import Trainer
 
@@ -1486,10 +1496,15 @@ def train_phase(torch, ds, counters) -> dict:
     tokens = f["batch"] * f["seq"]
     elapsed = [h["step"] / h["steps_per_s"] for h in hist]
     step_s = [elapsed[0]] + [y - x for x, y in zip(elapsed, elapsed[1:])]
-    peak_flops = TENSOR_OPS_PER_S["bfloat16"]
+    # the model's FLOPs a step: 6 x the active non-embedding parameters x
+    # tokens (launch/roofline.py::model_flops); the share by all parameters,
+    # the tied embedding table included, is printed beside it
+    step_flops = model_flops(get_arch(f["arch"]),
+                             ShapeConfig("train", f["seq"], f["batch"], "train"))
+    all_params_flops = 6 * n_params * tokens
     steps = []
     for h, sec in zip(hist, step_s):
-        share = 6 * n_params * tokens / sec / peak_flops
+        share = step_flops / sec / PEAK_FLOPS
         steps.append(dict(step=h["step"], seconds=sec, tokens_per_s=tokens / sec,
                           loss=h["loss"], grad_norm=h["grad_norm"],
                           flops_share=share))
@@ -1524,7 +1539,8 @@ def train_phase(torch, ds, counters) -> dict:
                 seq=f["seq"], microbatches=f["microbatches"],
                 remat=f["remat"], steps=steps, steady_step_s=mean_s,
                 steady_tokens_per_s=tokens / mean_s,
-                steady_flops_share=6 * n_params * tokens / mean_s / peak_flops,
+                steady_flops_share=step_flops / mean_s / PEAK_FLOPS,
+                steady_all_params_share=all_params_flops / mean_s / PEAK_FLOPS,
                 peak_memory_bytes=peak, checkpoint_bytes=ck_bytes,
                 checkpoint_copy_s=save["copy_s"],
                 checkpoint_write_wait_s=save["wait_s"],
@@ -1539,8 +1555,11 @@ def train_phase(torch, ds, counters) -> dict:
         f"dataset: loss {losses[0]:.4f} -> {losses[-1]:.4f}; steps 2-"
         f"{f['steps']} {mean_s:.3f} s a step, {tokens / mean_s:.1f} "
         f"tokens/s, model FLOPs share {100 * full['steady_flops_share']:.3f}% "
-        f"(6·N·tokens/s over {peak_flops / 1e12:.0f} TFLOP/s, the H100 SXM's "
-        f"dense bf16 peak from NVIDIA's data sheet); peak memory "
+        f"(model_flops: 6 x {step_flops / 6 / tokens:,.0f} active "
+        f"non-embedding parameters x tokens/s over {PEAK_FLOPS / 1e12:.0f} "
+        f"TFLOP/s, the H100 SXM's dense bf16 peak from NVIDIA's data sheet; "
+        f"by all {n_params:,} parameters, as before, "
+        f"{100 * full['steady_all_params_share']:.3f}%); peak memory "
         f"{peak / 2**30:.2f} GiB; checkpoint {ck_bytes:,} bytes, host copy "
         f"{save['copy_s']:.3f} s, write waited {save['wait_s']:.3f} s; "
         f"hand-kernel launches 0 | {smi}")
@@ -1560,18 +1579,6 @@ def train_phase(torch, ds, counters) -> dict:
     del out, params, opt, tr, prof
     torch.cuda.empty_cache()
     return dict(launches=launches, small=small, resume=resume, full=full)
-
-
-def live_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs that attention with these masks scores: query i
-    at position i + sk - sq sees keys (pos - window, pos] (causal) or
-    (pos - window, sk) (not causal); window 0 means no window."""
-    import numpy as np
-
-    qpos = np.arange(sq, dtype=np.int64) + (sk - sq)
-    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(sq)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
 # (label, B, S, H, K, D, window, softcap, q scale): gemma2-2b's prefill
@@ -1643,6 +1650,8 @@ def flash_phase(torch, fa, ref) -> list[dict]:
     softcap or a window, SDPA with the window as a dense mask in f32."""
     import torch.nn.functional as F
 
+    from repro_torch.launch.costing import TENSOR_OPS_PER_S, bound, flash_cost
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     results = []
@@ -1700,12 +1709,11 @@ def flash_phase(torch, fa, ref) -> list[dict]:
                 torch.testing.assert_close(lib().transpose(1, 2).float(),
                                            want.float(), **FLASH_TOL[dtype])
                 library_ms = device_ms(lib, reps, trials)
-            pairs = live_pairs(s, s, True, window) * b * h
-            bytes_moved = (2 * b * s * h * d + 2 * b * s * kh * d) \
-                * q.element_size()
-            bound_ms, bound_by = bound(bytes_moved, 4 * d * pairs,
+            flops, bytes_moved = flash_cost(b, s, s, h, kh, d, True, window,
+                                            q.element_size())
+            bound_ms, bound_by = bound(bytes_moved, flops,
                                        TENSOR_OPS_PER_S[dtype])
-            tflops = 4 * d * pairs / ms / 1e9
+            tflops = flops / ms / 1e9
             results.append(dict(shape=label, B=b, S=s, H=h, K=kh, D=d,
                                 window=window, softcap=cap, q_scale=q_scale,
                                 dtype=dtype, max_abs_err=err, ms=ms,
@@ -1750,6 +1758,8 @@ def mla_flash_phase(torch, fa, ref) -> list[dict]:
     output once, and 2·(dn + dr) + 2·dv flops a live pair a head."""
     import torch.nn.functional as F
 
+    from repro_torch.launch.costing import TENSOR_OPS_PER_S, bound, flash_cost
+
     from repro_torch.models.attention import mla_attention, mla_head_dim
 
     gen = torch.Generator(device="cuda")
@@ -1789,9 +1799,8 @@ def mla_flash_phase(torch, fa, ref) -> list[dict]:
             torch.testing.assert_close(lib().transpose(1, 2).float(),
                                        want.float(), **FLASH_TOL[dtype])
             library_ms = device_ms(lib, reps, trials)
-            pairs = live_pairs(s, s, True, 0) * b * h
-            bytes_moved = b * s * h * (2 * dqk + 2 * dv) * q.element_size()
-            flops = (2 * dqk + 2 * dv) * pairs
+            flops, bytes_moved = flash_cost(b, s, s, h, h, hd, True, 0,
+                                            q.element_size(), (dqk, dv))
             bound_ms, bound_by = bound(bytes_moved, flops,
                                        TENSOR_OPS_PER_S[dtype])
             results.append(dict(shape=label, B=b, S=s, H=h, K=h, D=hd,
@@ -1823,6 +1832,8 @@ def flash_new_phase(torch, fa, ref) -> list[dict]:
     (``is_causal`` only where Sq = Sk; ``enable_gqa``) timed, SDPA where
     it computes the same function (no softcap, no window)."""
     import torch.nn.functional as F
+
+    from repro_torch.launch.costing import TENSOR_OPS_PER_S, bound, flash_cost
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
@@ -1860,12 +1871,11 @@ def flash_new_phase(torch, fa, ref) -> list[dict]:
                 torch.testing.assert_close(lib().transpose(1, 2).float(),
                                            want.float(), **FLASH_TOL[dtype])
                 library_ms = device_ms(lib, reps, trials)
-            pairs = live_pairs(sq, sk, causal, window) * b * h
-            bytes_moved = (2 * b * sq * h * d + 2 * b * sk * kh * d) \
-                * q.element_size()
-            bound_ms, bound_by = bound(bytes_moved, 4 * d * pairs,
+            flops, bytes_moved = flash_cost(b, sq, sk, h, kh, d, causal,
+                                            window, q.element_size())
+            bound_ms, bound_by = bound(bytes_moved, flops,
                                        TENSOR_OPS_PER_S[dtype])
-            tflops = 4 * d * pairs / ms / 1e9
+            tflops = flops / ms / 1e9
             results.append(dict(shape=label, B=b, S=sq, Sq=sq, Sk=sk, H=h,
                                 K=kh, D=d, causal=causal, window=window,
                                 softcap=cap, q_scale=1.0, dtype=dtype,
@@ -1979,6 +1989,8 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
     over 67 TFLOP/s: 2 per RG-LRU element; per WKV6 step, 5 per state entry
     (the read-out ``r·S`` 2, the update ``w·S + k·v`` 3) and the bonus
     ``(Σ_k r_k u_k k_k) v`` at 3 per key and 2 per value)."""
+    from repro_torch.launch.costing import bound, rglru_cost, wkv6_cost
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     rg_results = []
@@ -2006,9 +2018,8 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
                                   PLAIN_LOOP_TRIALS if s > 1024 else 5,
                                   warmup=1)
                         if main or s <= 1024 else None)
-            bound_ms, bound_by = bound(
-                b * s * w * (4 + 2 * x.element_size()) + 2 * b * w * 4,
-                2 * b * s * w)
+            ops, bytes_moved = rglru_cost(b, s, w, x.element_size())
+            bound_ms, bound_by = bound(bytes_moved, ops)
             rg_results.append(dict(B=b, S=s, W=w, dtype=dtype, decay=decay,
                                    max_abs_err=err, ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
@@ -2071,11 +2082,8 @@ def recurrence_phase(torch, rg, rw, ref) -> tuple[list[dict], list[dict]]:
                                   PLAIN_LOOP_TRIALS if s > 1024 else 5,
                                   warmup=1)
                         if main or s <= 1024 else None)
-            elt = v.element_size()
-            bytes_moved = (b * s * h * (kd * (2 * elt + 4) + 2 * vd * elt)
-                           + h * kd * 4 + 2 * b * h * kd * vd * 4)
-            bound_ms, bound_by = bound(
-                bytes_moved, b * s * h * (5 * kd * vd + 3 * kd + 2 * vd))
+            ops, bytes_moved = wkv6_cost(b, s, h, kd, vd, v.element_size())
+            bound_ms, bound_by = bound(bytes_moved, ops)
             rw_results.append(dict(B=b, S=s, H=h, K=kd, V=vd, dtype=dtype,
                                    decay=decay, max_abs_err=err, ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
@@ -2727,6 +2735,228 @@ def mrope_phase(torch, fa, model, params) -> dict:
     return out
 
 
+def phase12_prefills() -> list[tuple[str, int]]:
+    """(arch, tokens) of phase 12's profiled prefills."""
+    return ([(arch, 6000) for arch, _ in SERVE_ARCHS]
+            + [(arch, MOE_MLA_PROMPT) for arch in MOE_MLA_ARCHS]
+            + [(QWEN_VL["arch"], 6000)])
+
+
+def dryrun_counts() -> dict:
+    """Phase 14's counts on the ``meta`` device (no card; run in a process
+    of its own): one microbatch of 7d(c)'s step (2 x 4096, remat full, no
+    accumulation), the whole step (8 x 4096 in 4 microbatches), and each
+    of phase 12's prefills (one row)."""
+    from repro_torch.config.base import ShapeConfig, TrainConfig, get_arch
+    from repro_torch.launch.costing import cell_costs
+
+    t0 = time.perf_counter()
+    f, d = TRAIN_FULL, DRYRUN
+    cfg = get_arch(f["arch"])
+    out = {
+        "microbatch": cell_costs(
+            cfg, ShapeConfig("train", f["seq"], d["microbatch"], "train"),
+            TrainConfig(microbatches=1, remat=f["remat"])),
+        "step": cell_costs(
+            cfg, ShapeConfig("train", f["seq"], f["batch"], "train"),
+            TrainConfig(microbatches=f["microbatches"], remat=f["remat"])),
+        "prefill": {arch: cell_costs(get_arch(arch),
+                                     ShapeConfig("prefill", n, 1, "prefill"))
+                    for arch, n in phase12_prefills()},
+    }
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dryrun_phase(torch, fa, counts: dict, train: dict, served: dict,
+                 smi: str) -> dict:
+    """Phase 14: the dry-run tooling held against the card (``DRYRUN``).
+
+    (a) gate: building qwen1.5-0.5b's parameters (bf16) and AdamW state
+    (f32) as 7d(c) does asks the caching allocator for the one-card plan's
+    bytes within ``ALLOC_ROUND`` a tensor (its ``requested_bytes``; the
+    growth of ``memory_allocated()``, which counts whole blocks, up to
+    1 MB more a large tensor, is printed beside it); (b) gate: the
+    costing's meta FLOPs (``counts``, from :func:`dryrun_counts`) equal
+    FlopCounterMode's on the card, exactly, for one microbatch of 7d(c)'s
+    step through the plain attention (forward and backward, remat full)
+    and for gemma2-2b's prefill through the kernel route, where the card's
+    count is FlopCounterMode's aten part plus the flash kernel's formula
+    for each layer's launch; (c) prints the roofline terms and bound of
+    7d(c)'s step and of phase 12's prefills beside their measured times,
+    the model FLOPs shares and 7d(c)'s predicted and measured peak memory;
+    (d) prints deepseek-v2-236b's serving plan at 60 layers."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.config.base import ShapeConfig, TrainConfig, get_arch
+    from repro_torch.launch import costing
+    from repro_torch.launch.dryrun import memory_plan
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.launch.roofline import (PEAK_FLOPS, model_flops,
+                                             roofline_report)
+    from repro_torch.models.lm import layer_plan
+    from repro_torch.models.registry import Model, build_model
+    from repro_torch.sharding import opt_state_specs, param_specs, plan_bytes
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.step import abstract_train_state
+    from repro_torch.utils.tree import tree_leaves
+
+    d, f = DRYRUN, TRAIN_FULL
+    out: dict = {"counts_s": counts["seconds"]}
+
+    # (a) the plan's bytes against the allocator
+    cfg = get_arch(d["arch"])
+    tc = TrainConfig()
+    one = make_abstract_mesh((1, 1), ("data", "model"))
+    p_meta, o_meta = abstract_train_state(Model(cfg, torch.device("meta")),
+                                          tc)
+    plan = (plan_bytes(p_meta, param_specs(cfg, p_meta, one), one)
+            + plan_bytes(o_meta, opt_state_specs(cfg, o_meta, p_meta, one),
+                         one))
+    n_tensors = len(tree_leaves(p_meta)) + len(tree_leaves(o_meta))
+    def allocator():
+        torch.cuda.synchronize()
+        stats = torch.cuda.memory_stats()
+        return (stats["requested_bytes.all.current"],
+                torch.cuda.memory_allocated())
+
+    torch.cuda.empty_cache()
+    before = allocator()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(tc.seed)
+    params = build_model(cfg, "cuda").init(gen)
+    opt = adamw_init(dict(params.named_parameters()), tc.opt_state_dtype)
+    requested, grown = (x - y for x, y in zip(allocator(), before))
+    del params, opt
+    torch.cuda.empty_cache()
+    if abs(requested - plan) > ALLOC_ROUND * n_tensors:
+        raise AssertionError(f"dryrun: the plan says {plan:,} bytes of "
+                             f"parameters and AdamW state, the card's "
+                             f"allocator was asked for {requested:,} "
+                             f"({n_tensors} tensors)")
+    out["plan"] = dict(plan_bytes=plan, requested=requested,
+                       allocated=grown, tensors=n_tensors)
+    log(f"dryrun: {d['arch']} parameters (bf16) and AdamW state (f32): the "
+        f"one-card plan {plan:,} bytes; the card's allocator was asked for "
+        f"{requested:,} ({requested - plan:+,}; {n_tensors} tensors, within "
+        f"{ALLOC_ROUND} bytes each) and its allocated bytes grew by "
+        f"{grown:,} (its blocks' rounding and unsplit remainders) | {smi}")
+
+    # (b) the costing's FLOPs against FlopCounterMode on the card
+    mb = ShapeConfig("train", f["seq"], d["microbatch"], "train")
+    fa.reset_launches()
+    with FlopCounterMode(display=False) as counter:
+        costing.run_cell(cfg, mb, TrainConfig(microbatches=1,
+                                              remat=f["remat"]),
+                         device="cuda")
+    torch.cuda.synchronize()
+    card = counter.get_total_flops()
+    meta = counts["microbatch"]
+    if (card != meta["aten_flops"] or meta["kernel_flops"]
+            or fa.launches["flash_attention"]):
+        raise AssertionError(f"dryrun: one microbatch of the step: meta "
+                             f"{meta['aten_flops']:,} FLOPs, the card "
+                             f"{card:,}, flash launches {fa.launches}")
+    torch.cuda.empty_cache()
+    g = get_arch(d["prefill_arch"])
+    n = d["prefill"]
+    fa.reset_launches()
+    with FlopCounterMode(display=False) as counter:
+        costing.run_cell(g, ShapeConfig("prefill", n, 1, "prefill"),
+                         device="cuda")
+    torch.cuda.synchronize()
+    attn = [kind for kind, _, _ in layer_plan(g) if kind in ("global",
+                                                             "local")]
+    kernel = sum(costing.flash_cost(
+        1, n, n, g.n_heads, g.n_kv_heads, g.head_dim, True,
+        g.window if kind == "local" else 0, 2)[0] for kind in attn)
+    pre = counts["prefill"][d["prefill_arch"]]
+    card_pre = counter.get_total_flops() + kernel
+    if (fa.launches["flash_attention"] != len(attn)
+            or pre["kernel_calls"] != {"flash_attention": len(attn)}
+            or card_pre != pre["flops_per_device"]
+            or counter.get_total_flops() != pre["aten_flops"]):
+        raise AssertionError(
+            f"dryrun: {d['prefill_arch']} prefill: meta {pre['aten_flops']:,}"
+            f" + {pre['kernel_flops']:,} FLOPs over {pre['kernel_calls']}, "
+            f"the card {counter.get_total_flops():,} + {kernel:,} over "
+            f"{fa.launches['flash_attention']} launches")
+    torch.cuda.empty_cache()
+    out["flops"] = dict(microbatch=card, prefill_aten=card_pre - kernel,
+                        prefill_kernel=kernel)
+    log(f"dryrun: FLOPs on meta = FlopCounterMode on the card, exactly: one "
+        f"{d['microbatch']} x {f['seq']} microbatch of 7d(c)'s step "
+        f"(forward, backward, remat {f['remat']}, plain attention) "
+        f"{card:,}; {d['prefill_arch']}'s {n}-token prefill {card_pre:,} "
+        f"(aten {card_pre - kernel:,} + flash {kernel:,} over "
+        f"{len(attn)} launches) | {smi}")
+
+    # (c) the roofline beside the measured times
+    def roofline(c, mf, measured_s):
+        rep = roofline_report(flops_per_device=c["flops_per_device"],
+                              bytes_per_device=c["bytes_per_device"],
+                              wire_bytes_per_device=0, n_devices=1,
+                              model_flops_global=mf)
+        bound_s = max(rep["compute_s"], rep["memory_s"])
+        return dict(compute_s=rep["compute_s"], memory_s=rep["memory_s"],
+                    dominant=rep["dominant"], bound_s=bound_s,
+                    measured_s=measured_s, roofline_mfu=bound_s / measured_s,
+                    model_flops_share=mf / measured_s / PEAK_FLOPS)
+
+    full = train["full"]
+    step = counts["step"]
+    r = roofline(step, model_flops(cfg, ShapeConfig(
+        "train", f["seq"], f["batch"], "train")), full["steady_step_s"])
+    out["step"] = dict(r, predicted_peak_bytes=step["peak_bytes"],
+                       measured_peak_bytes=full["peak_memory_bytes"])
+    log(f"dryrun: 7d(c)'s step ({f['batch']} x {f['seq']}, "
+        f"{f['microbatches']} microbatches, remat {f['remat']}): "
+        f"{step['flops_per_device']:.4e} FLOPs, {step['bytes_per_device']:.4e}"
+        f" bytes; compute {r['compute_s']:.4f} s, memory {r['memory_s']:.4f}"
+        f" s at {PEAK_FLOPS / 1e12:.0f} TFLOP/s and "
+        f"{costing.MEM_BYTES_PER_S / 1e12:.2f} TB/s: bound {r['bound_s']:.4f}"
+        f" s ({r['dominant']}) beside the measured {r['measured_s']:.4f} s: "
+        f"roofline_mfu {100 * r['roofline_mfu']:.2f}%; model FLOPs share "
+        f"{100 * r['model_flops_share']:.3f}%; peak memory predicted "
+        f"{step['peak_bytes'] / 2**30:.2f} GiB, measured "
+        f"{full['peak_memory_bytes'] / 2**30:.2f} GiB | {smi}")
+    out["prefill"] = {}
+    for arch, n in phase12_prefills():
+        prof = served[arch]["profile"]["prefill"]
+        r = roofline(counts["prefill"][arch], model_flops(
+            get_arch(arch), ShapeConfig("prefill", n, 1, "prefill")),
+            prof["wall_ms"] / 1e3)
+        r["busy_share_of_bound"] = r["bound_s"] / (prof["device_busy_ms"]
+                                                   / 1e3)
+        out["prefill"][arch] = r
+        log(f"dryrun: {arch} {n}-token prefill: compute "
+            f"{1e3 * r['compute_s']:.3f} ms, memory "
+            f"{1e3 * r['memory_s']:.3f} ms: bound {1e3 * r['bound_s']:.3f} "
+            f"ms ({r['dominant']}) beside phase 12's wall "
+            f"{prof['wall_ms']:.3f} ms (roofline_mfu "
+            f"{100 * r['roofline_mfu']:.2f}%) and busy "
+            f"{prof['device_busy_ms']:.3f} ms "
+            f"({100 * r['busy_share_of_bound']:.2f}%); model FLOPs share "
+            f"{100 * r['model_flops_share']:.2f}% | {smi}")
+
+    # (d) deepseek-v2-236b's serving plan at its full depth
+    big = get_arch(d["plan_arch"])
+    serve = ShapeConfig("serve", d["serve_seq"], d["serve_batch"], "decode")
+    out["plan_deepseek"] = {}
+    for shape in d["meshes"]:
+        m = make_abstract_mesh(shape, ("data", "model"))
+        mp = memory_plan(big, serve, m, None)
+        name = "x".join(map(str, shape))
+        out["plan_deepseek"][name] = mp
+        log(f"dryrun: {d['plan_arch']} ({big.n_layers} layers) serving "
+            f"{d['serve_batch']} slots of {d['serve_seq']} tokens on a "
+            f"{name} (data x model) mesh: {mp['params'] / 1e9:.2f} GB of "
+            f"parameters, {mp['cache'] / 1e9:.3f} GB of cache a card, "
+            f"{mp['total'] / 1e9:.2f} GB in all: "
+            f"{'fits' if mp['fits_80GB'] else 'does not fit'} in 80 GB")
+    return out
+
+
 def states_equal(torch, a, b, path="state") -> None:
     if a is None and b is None:
         return
@@ -2757,7 +2987,7 @@ def main() -> None:
     phase_s: dict[str, float] = {}
     t_mark = [time.perf_counter()]
 
-    def done(name: str) -> None:
+    def phase_done(name: str) -> None:
         now = time.perf_counter()
         phase_s[name] = now - t_mark[0]
         t_mark[0] = now
@@ -2781,7 +3011,7 @@ def main() -> None:
               for n in ("idm", "flash_attention", "rglru", "wkv6")}
     builds["idm"].result()
     log(f"built {SOURCE} for sm_90a in {time.perf_counter() - t0:.2f} s")
-    done("1-2 card, build idm.cu")
+    phase_done("1-2 card, build idm.cu")
 
     # 3. kernels against their plain versions
     nb_results, idm_results = kernel_phase(torch, idm, ref)
@@ -2791,7 +3021,7 @@ def main() -> None:
     log(f"built {FLASH_SOURCE}, {RGLRU_SOURCE} and {WKV6_SOURCE} for sm_90a "
         f"while phase 3 ran: all four ready {time.perf_counter() - t0:.2f} s "
         "after the build started")
-    done("3 kernels")
+    phase_done("3 kernels")
 
     # 4. the sweep at full size through the launcher
     argv = [
@@ -2837,7 +3067,15 @@ def main() -> None:
         f"{veh_steps / wall:.1f} vehicle-steps/s ({veh_steps:.0f} active "
         f"vehicle-steps), neighbor_kernel launches {counts['neighbor_kernel']}"
         f" = 2 x {SWEEP['chunk_steps']} x {res['group_calls']} group calls")
-    done("4 sweep")
+    phase_done("4 sweep")
+
+    # 14's meta counts, in a process of their own while the card runs 5-13
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    counter_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    counts_future = counter_pool.submit(dryrun_counts)
 
     # 5. a small sweep on the card against the same sweep on the CPU
     small = ["--instances", "8", "--slots", "16", "--steps", "120",
@@ -2854,7 +3092,7 @@ def main() -> None:
             np.testing.assert_array_equal(x, y, err_msg=f"metrics.{name}")
     log("reference: 8-instance sweep on the card (cuda impl) matches the CPU "
         "(sort impl): counters equal, floats within rtol 1e-5")
-    done("5 reference")
+    phase_done("5 reference")
 
     # 6. cuda == sort on the card, bit for bit
     parity = ["--instances", str(PARITY["instances"]), "--slots",
@@ -2867,27 +3105,27 @@ def main() -> None:
     states_equal(torch, a["state"], b["state"])
     log("parity: cuda and sort give a bit-identical final SweepState "
         f"({PARITY['instances']} instances, {PARITY['steps']} steps)")
-    done("6 parity")
+    phase_done("6 parity")
 
     # 6a. the same sweep through blocks, and phase 4's through 2 blocks
     blocks = blocks_phase(torch, idm, a["state"], sweep)
-    done("6a blocks")
+    phase_done("6a blocks")
 
     # 7. where a group call's time goes
     profile_phase(torch)
-    done("7 profile")
+    phase_done("7 profile")
 
     # 7a. the recording, checkpointed, supervised sweep in-process; 7b. the
     # controller over the full-size recording sweep (the gate)
     record = record_phase(torch, idm, a["state"])
-    done("7a record")
+    phase_done("7a record")
     pipeline = pipeline_phase(torch, sweep)
-    done("7b pipeline")
+    phase_done("7b pipeline")
     # 7c. the LM inputs of 7b's dataset; 7d. training on it
     tokens_phase(torch, pipeline["dataset"])
-    done("7c tokens")
+    phase_done("7c tokens")
     train = train_phase(torch, pipeline["dataset"], (idm, fa, rg, rw))
-    done("7d train")
+    phase_done("7d train")
 
     main_nb = nb_results[0]
     main_idm = idm_results[0]
@@ -2931,11 +3169,11 @@ def main() -> None:
         raise AssertionError(f"flash_attention bf16: {margin['crossed']} of "
                              f"{margin['draws']} q x 20 draws cross the "
                              "tolerance")
-    done("8 attention")
+    phase_done("8 attention")
 
     # 9. the recurrence kernels against their plain versions
     rg_results, rw_results = recurrence_phase(torch, rg, rw, ref)
-    done("9 recurrences")
+    phase_done("9 recurrences")
 
     # 10-13 for each served model: serve, serve vs plain, profile,
     # engine = greedy; each model is freed before the next
@@ -2952,7 +3190,7 @@ def main() -> None:
         del model32, params32
         torch.cuda.empty_cache()
         served[arch] = out
-    done("10-13 gemma2-2b, recurrentgemma-2b, rwkv6-3b")
+    phase_done("10-13 gemma2-2b, recurrentgemma-2b, rwkv6-3b")
     # the same for the MoE and MLA families, shorter (SERVE_MOE_MLA), then
     # deepseek-v2-236b cut to 2 layers through phase 11
     t_new = time.perf_counter()
@@ -2975,7 +3213,7 @@ def main() -> None:
     deepseek = cut_model_phase(torch, fa, **DEEPSEEK)
     log(f"serve: the MoE and MLA families (phases 10-13 and deepseek's 11) "
         f"in {time.perf_counter() - t_new:.1f} s")
-    done("10-13 olmoe-1b-7b, minicpm3-4b, deepseek-v2-236b")
+    phase_done("10-13 olmoe-1b-7b, minicpm3-4b, deepseek-v2-236b")
     # the encoder-decoder and M-RoPE families, then gemma2-9b cut to 2
     # layers through phase 11
     whisper = whisper_phase(torch, fa)
@@ -2996,7 +3234,13 @@ def main() -> None:
         f"{out['phase_s']:.1f} s")
     served[QWEN_VL["arch"]] = out
     gemma9 = cut_model_phase(torch, fa, **GEMMA9)
-    done("whisper-large-v3, qwen2-vl-2b, gemma2-9b")
+    phase_done("whisper-large-v3, qwen2-vl-2b, gemma2-9b")
+
+    # 14. the dry-run tooling against the card
+    counts = counts_future.result()
+    counter_pool.shutdown()
+    dryrun_phase(torch, fa, counts, train, served, smi)
+    phase_done("14 dryrun")
     train_new_s = sum(train["small"][a]["arch_s"]
                       for a in ("whisper-large-v3", "qwen2-vl-2b"))
     new_s = {"phase 8 new shapes": flash_new_s, "whisper-large-v3":

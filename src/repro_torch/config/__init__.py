@@ -4,6 +4,7 @@ copy of the reference's ``config/base.py``: the port imports nothing of
 
 from repro_torch.config.base import (
     SHAPES,
+    MeshConfig,
     ModelConfig,
     ServeConfig,
     ShapeConfig,
@@ -14,4 +15,4 @@ from repro_torch.config.base import (
 )
 
 __all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "ServeConfig",
-           "SHAPES", "get_arch", "list_archs", "register_arch"]
+           "MeshConfig", "SHAPES", "get_arch", "list_archs", "register_arch"]

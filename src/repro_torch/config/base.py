@@ -1,11 +1,11 @@
 """Config system: frozen dataclasses + an architecture registry.
 
 The port's copy of ``repro/config/base.py`` (``ModelConfig``,
-``ShapeConfig`` and ``SHAPES``, ``TrainConfig``, ``ServeConfig`` and the
-registry; the mesh config comes with the sharding slice, ROADMAP queue 1
-item 10). Field names, defaults and :meth:`ModelConfig.reduced` are the
-reference's, so a reduced config here has the same shapes as the
-reference's reduced config of the same architecture.
+``ShapeConfig`` and ``SHAPES``, ``TrainConfig``, ``ServeConfig``,
+``MeshConfig`` and the registry). Field names, defaults and
+:meth:`ModelConfig.reduced` are the reference's, so a reduced config here
+has the same shapes as the reference's reduced config of the same
+architecture.
 """
 
 from __future__ import annotations
@@ -155,7 +155,7 @@ SHAPES: dict[str, ShapeConfig] = {
 
 
 # --------------------------------------------------------------------------
-# Train / serve configuration
+# Train / serve / mesh configuration
 # --------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -184,6 +184,23 @@ class ServeConfig:
     prefill_chunk: int = 512
     temperature: float = 0.0
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A mesh's axis sizes and names, with no device behind it: the
+    sharding rules and the dry run's memory plan read it
+    (:func:`repro_torch.launch.mesh.make_abstract_mesh`)."""
+
+    shape: tuple[int, ...] = (16, 16)
+    axes: tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

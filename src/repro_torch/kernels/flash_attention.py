@@ -11,7 +11,9 @@ on the tensors' card (under a device guard) and its current stream
 without synchronising, raises if the launch was refused, and adds one to
 ``launches["flash_attention"]``.
 There is no fallback from a CUDA tensor to the plain version, nor from one
-kernel to the other.
+kernel to the other. On a ``meta`` tensor it returns a ``meta`` output and
+adds its work to the costing (:func:`repro_torch.launch.costing.kernel_call`),
+which raises unless the costing is counting.
 
 One C entry, two kernels: bf16 runs on the Hopper tensor cores
 (``flash_fwd_wgmma``: wgmma for both products, K/V tiles by TMA into an
@@ -52,15 +54,26 @@ def reset_launches() -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, scale: float | None = None):
+                    softcap: float = 0.0, scale: float | None = None,
+                    work_dims: tuple[int, int] | None = None):
     """Online-softmax attention: ``q [B, Sq, H, D]``, ``k``/``v
     [B, Sk, K, D]`` (bf16 or f32, ``H % K == 0``) → ``[B, Sq, H, D]`` in
     ``q``'s type, with end-aligned causal masking, a sliding ``window``
-    (0: none) and the tanh logit ``softcap`` (0: none)."""
+    (0: none) and the tanh logit ``softcap`` (0: none). ``work_dims``
+    names the unpadded (q/k, v) head dims of zero-padded inputs, for the
+    costing alone."""
     b, sq, h, d = q.shape
     scale = d**-0.5 if scale is None else scale
     if q.device.type == "cpu":
         return ref_attention(q, k, v, causal, window, softcap, scale)
+    if q.device.type == "meta":
+        from repro_torch.launch import costing
+
+        refuse_grad("flash_attention", q, k, v)
+        costing.kernel_call("flash_attention", *costing.flash_cost(
+            b, sq, k.shape[1], h, k.shape[2], d, causal, window,
+            q.element_size(), work_dims))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     refuse_grad("flash_attention", q, k, v)

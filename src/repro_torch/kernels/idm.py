@@ -12,7 +12,10 @@ the kernel on the tensors' card (under a device guard, so ``cuda:1`` works
 whatever the current card is) and its current stream without
 synchronising, raises if the launch was refused, and adds one to
 ``launches[<name>]``. There is no
-fallback from a CUDA tensor to the plain version.
+fallback from a CUDA tensor to the plain version. On a ``meta`` tensor a
+wrapper returns ``meta`` outputs and adds its work to the costing
+(:func:`repro_torch.launch.costing.kernel_call`), which raises unless the
+costing is counting.
 """
 
 from __future__ import annotations
@@ -58,6 +61,15 @@ def neighbor_kernel(pos, lane, active, query_lanes, *, n_rows=None,
     if pos.device.type == "cpu":
         return ref_neighbor_mq(pos, lane, active, query_lanes, veh_len,
                                n_rows=n_rows)
+    if pos.device.type == "meta":
+        from repro_torch.launch import costing
+
+        b, n = pos.shape
+        q = int(n_rows) if query_lanes is None else query_lanes.shape[1]
+        ops, nbytes = costing.neighbor_cost(b, n, q, query_lanes is not None)
+        costing.kernel_call("neighbor_kernel", ops, nbytes)
+        return tuple(torch.empty((b, q, n), dtype=dt, device=pos.device)
+                     for dt in (torch.int32, torch.float32, torch.bool) * 2)
     if pos.device.type != "cuda":
         raise ValueError(f"neighbor_kernel runs on cpu or cuda, not {pos.device}")
     b, n = pos.shape
@@ -109,6 +121,12 @@ def idm_accel_kernel(pos, vel, lane, active, v0, T, a_max, b_comf, s0, *,
     if pos.device.type == "cpu":
         return ref_idm_accel(pos, vel, lane, active, v0, T, a_max, b_comf, s0,
                              veh_len)
+    if pos.device.type == "meta":
+        from repro_torch.launch import costing
+
+        costing.kernel_call("idm_accel_kernel", *costing.idm_accel_cost(
+            *pos.shape))
+        return torch.empty(pos.shape, dtype=torch.float32, device=pos.device)
     if pos.device.type != "cuda":
         raise ValueError(f"idm_accel_kernel runs on cpu or cuda, not {pos.device}")
     return _idm_launch("idm_accel_kernel", "idm_accel_launch", pos, vel, lane,

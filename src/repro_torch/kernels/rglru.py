@@ -10,7 +10,10 @@ inclusive state, the flags and the counter that orders the blocks) with
 ``torch.empty``, launches the kernel on the tensors' card (under a device
 guard) and its current stream without synchronising, raises if the launch
 was refused, and adds one to ``launches["rglru_linear_scan"]``. There is no
-fallback from a CUDA tensor to the plain version.
+fallback from a CUDA tensor to the plain version. On a ``meta`` tensor it
+returns ``meta`` outputs and adds its work to the costing
+(:func:`repro_torch.launch.costing.kernel_call`), which raises unless the
+costing is counting.
 """
 
 from __future__ import annotations
@@ -46,6 +49,15 @@ def rglru_linear_scan(a, x, h0):
     if x.device.type == "cpu":
         ys, h = ref_rglru(a, x, h0)
         return ys.to(x.dtype), h
+    if x.device.type == "meta":
+        from repro_torch.launch import costing
+
+        refuse_grad("rglru_linear_scan", a, x, h0)
+        b, s, w = x.shape
+        ops, nbytes = costing.rglru_cost(b, s, w, x.element_size())
+        costing.kernel_call("rglru_linear_scan", ops, nbytes)
+        return (torch.empty_like(x),
+                torch.empty((b, w), dtype=torch.float32, device=x.device))
     if x.device.type != "cuda":
         raise ValueError(f"rglru_linear_scan runs on cpu or cuda, not "
                          f"{x.device}")

@@ -11,6 +11,9 @@ state and flag, and the counter that orders the blocks) with
 guard) and its current stream without synchronising, raises if a launch
 was refused, and adds one to ``launches["wkv6"]``: one per call, however
 many device kernels the call runs. There is no fallback from a CUDA tensor to the plain version.
+On a ``meta`` tensor it returns ``meta`` outputs and adds its work to the
+costing (:func:`repro_torch.launch.costing.kernel_call`), which raises
+unless the costing is counting.
 """
 
 from __future__ import annotations
@@ -51,6 +54,17 @@ def wkv6(r, k, v, w, u, s0):
     if v.device.type == "cpu":
         y, state = ref_wkv6(r, k, v, w, u, s0)
         return y.to(v.dtype), state
+    if v.device.type == "meta":
+        from repro_torch.launch import costing
+
+        refuse_grad("wkv6", r, k, v, w, u, s0)
+        b, s, h, kd = r.shape
+        vd = v.shape[3]
+        ops, nbytes = costing.wkv6_cost(b, s, h, kd, vd, v.element_size())
+        costing.kernel_call("wkv6", ops, nbytes)
+        return (torch.empty_like(v),
+                torch.empty((b, h, kd, vd), dtype=torch.float32,
+                            device=v.device))
     if v.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cpu or cuda, not {v.device}")
     refuse_grad("wkv6", r, k, v, w, u, s0)

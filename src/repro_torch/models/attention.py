@@ -455,11 +455,11 @@ def mla_attention(q, k, v, scale: float) -> torch.Tensor:
     tensors."""
     if _ATTN_IMPL.get() != "kernel":
         return full_attention(q, k, v, causal=True, window=0, scale=scale)
-    dv = v.shape[-1]
-    hd = mla_head_dim(max(q.shape[-1], dv))
+    dqk, dv = q.shape[-1], v.shape[-1]
+    hd = mla_head_dim(max(dqk, dv))
     q, k, v = (F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
     ctx = flash_attention(q, k, v, causal=True, window=0, softcap=0.0,
-                          scale=scale)
+                          scale=scale, work_dims=(dqk, dv))
     return ctx[..., :dv]
 
 

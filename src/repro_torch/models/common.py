@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.core import xmath
+from repro_torch.sharding.ctx import constrain, tp_size
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -247,12 +248,25 @@ def logits_from_hidden(cfg: ModelConfig, embed: Embedding, head,
                        x: torch.Tensor) -> torch.Tensor:
     """Final projection to the vocabulary, in f32, with the final softcap.
 
-    The reference pads the vocabulary to a multiple of its mesh's model
-    axis; the port runs on one card without a mesh (model axis 1), so there
-    is no padding."""
+    Under an active mesh the vocabulary is padded up to a multiple of its
+    model axis (vocab-parallel logits, as the reference's), so that an
+    indivisible vocabulary (whisper's 51,866, minicpm3's 73,448) still
+    shards; the pad columns carry -2^30, which softmax and the loss
+    ignore, and are kept. With no active mesh (model axis 1) nothing is
+    padded."""
     w = embed.table if (cfg.tie_embeddings or head is None) else head.w.t()
-    logits = f32_product(x, w)
-    return softcap(logits, cfg.final_logit_softcap)
+    v = w.shape[0]
+    pad = (-v) % tp_size()
+    if pad:
+        w = torch.cat([w, w.new_zeros((pad, w.shape[1]))], dim=0)
+    logits = softcap(f32_product(x, w), cfg.final_logit_softcap)
+    if pad:
+        neg = torch.full((pad,), -2.0**30, dtype=logits.dtype,
+                         device=logits.device)
+        logits = logits + torch.cat([logits.new_zeros((v,)), neg])
+    # the vocabulary stays sharded over the model axis: the loss consumes
+    # sharded logits without gathering the full [B, S, V] f32 tensor
+    return constrain(logits, "dp", *([None] * (logits.ndim - 2)), "tp")
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -54,6 +54,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.ffn import FFN, ffn_apply
 from repro_torch.models.lm import REMAT, remat_call
+from repro_torch.sharding.ctx import constrain
 
 
 class EncBlock(nn.Module):
@@ -147,7 +148,7 @@ def _enc_layer(cfg: ModelConfig, bp: EncBlock, x, positions):
     h = norm(cfg, bp.norm1, x)
     x = x + attn_apply(cfg, bp.attn, h, positions, "global", causal=False)
     h = norm(cfg, bp.norm2, x)
-    return x + ffn_apply(cfg, bp.ffn, h)
+    return constrain(x + ffn_apply(cfg, bp.ffn, h), "dp", None, None)
 
 
 def encode(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
@@ -157,6 +158,7 @@ def encode(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
     b, t, _ = frames.shape
     x = frames @ params.frame_proj
     x = x + sinusoidal_positions(t, cfg.d_model, x.device).to(x.dtype)[None]
+    x = constrain(x, "dp", None, None)
     positions = _positions(b, t, x.device)
     for bp in params.enc_blocks:
         x = remat_call(lambda x, bp: _enc_layer(cfg, bp, x, positions),
@@ -186,7 +188,7 @@ def encdec_apply(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
         raise ValueError(f"remat is one of {REMAT}, not {remat!r}")
     enc = encode(params, cfg, frames, remat=remat)
     b, s = dec_tokens.shape
-    x = _embed_prompt(params, cfg, dec_tokens)
+    x = constrain(_embed_prompt(params, cfg, dec_tokens), "dp", None, None)
     positions = _positions(b, s, x.device)
 
     def layer(x, enc, bp):
@@ -195,7 +197,7 @@ def encdec_apply(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
         h = norm(cfg, bp.norm_x, x)
         kv = cross_attn_kv(cfg, bp.cross_attn, enc)
         x = x + cross_attn_apply(cfg, bp.cross_attn, h, kv)
-        return _ffn_half(cfg, bp, x)
+        return constrain(_ffn_half(cfg, bp, x), "dp", None, None)
 
     for bp in params.dec_blocks:
         x = remat_call(layer, remat, x, enc, bp)

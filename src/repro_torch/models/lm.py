@@ -46,6 +46,7 @@ from repro_torch.models.common import (
     norm,
     param,
 )
+from repro_torch.sharding.ctx import constrain
 
 
 class StackPlan(NamedTuple):
@@ -186,7 +187,7 @@ def lm_apply(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     selects M-RoPE in a config with ``mrope_sections``."""
     if remat not in REMAT:
         raise ValueError(f"remat is one of {REMAT}, not {remat!r}")
-    x = embed_tokens(cfg, params.embed, tokens)
+    x = constrain(embed_tokens(cfg, params.embed, tokens), "dp", None, None)
     if positions is None:
         positions = _positions(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -195,6 +196,7 @@ def lm_apply(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
         a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for p in layers:
             x, a = block_apply(cfg, p, x, positions, mrope_pos)
+            x = constrain(x, "dp", None, None)
             a_sum = a_sum + a
         return x, a_sum
 

@@ -11,7 +11,9 @@ Batch dict conventions, as the reference:
 
 The model runs on ``device`` (``None`` means ``cuda``, as everywhere in the
 port); its caches are made there, and :meth:`Model.init` draws the weights
-there from a ``torch.Generator`` on that device.
+there from a ``torch.Generator`` on that device. :meth:`Model.abstract_params`
+and :meth:`Model.abstract_cache` build them on the ``meta`` device instead,
+whatever ``device``: shapes and types with no storage (the dry run's).
 """
 
 from __future__ import annotations
@@ -56,6 +58,10 @@ class Model:
             return _encdec.encdec_init(self.cfg, generator)
         return _lm.lm_init(self.cfg, generator)
 
+    def abstract_params(self):
+        """The parameters on the ``meta`` device: no allocation."""
+        return params_module(self.cfg, torch.device("meta"))
+
     def apply(self, params, batch: dict, remat: str = "none"):
         """Returns (logits [B,S,V] f32, moe_aux); ``remat`` is ``"none"``,
         ``"full"`` or ``"dots"`` (:func:`repro_torch.models.lm.lm_apply`)."""
@@ -70,6 +76,11 @@ class Model:
             return _encdec.encdec_cache_init(self.cfg, batch, max_seq,
                                              self.device)
         return _lm.lm_cache_init(self.cfg, batch, max_seq, self.device)
+
+    def abstract_cache(self, batch: int, max_seq: int):
+        """The cache of :meth:`init_cache` on the ``meta`` device."""
+        meta = dataclasses.replace(self, device=torch.device("meta"))
+        return meta.init_cache(batch, max_seq)
 
     def prefill(self, params, cache, batch: dict):
         """Returns (last-position logits [B, V] f32, cache)."""

@@ -8,7 +8,11 @@ from repro_torch.train.optim import (
     adamw_update,
     lr_schedule,
 )
-from repro_torch.train.step import cross_entropy_loss, make_train_step
+from repro_torch.train.step import (
+    abstract_train_state,
+    cross_entropy_loss,
+    make_train_step,
+)
 
 __all__ = [
     "AdamWState",
@@ -16,5 +20,6 @@ __all__ = [
     "adamw_update",
     "lr_schedule",
     "make_train_step",
+    "abstract_train_state",
     "cross_entropy_loss",
 ]

@@ -18,7 +18,7 @@ from repro_torch.config.base import TrainConfig
 from repro_torch.models.attention import attention_impl
 from repro_torch.models.recurrent import recurrence_impl
 from repro_torch.models.registry import Model, reference_ranks
-from repro_torch.train.optim import AdamWState, adamw_update
+from repro_torch.train.optim import AdamWState, adamw_init, adamw_update
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -113,3 +113,13 @@ def make_train_step(model: Model, tc: TrainConfig):
         return params, opt_state, metrics
 
     return train_step
+
+
+def abstract_train_state(model: Model, tc: TrainConfig):
+    """(params, opt_state) on the ``meta`` device at the configured types:
+    the parameters in the model's type, the moments in
+    ``tc.opt_state_dtype``. Allocates nothing (the dry run's)."""
+    params = model.abstract_params()
+    opt_state = adamw_init(dict(params.named_parameters()),
+                           dtype=tc.opt_state_dtype)
+    return params, opt_state

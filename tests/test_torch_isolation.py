@@ -121,7 +121,12 @@ def test_no_jax_or_reference_imports(tmp_path):
                  "repro_torch.core.xmath",
                  "repro_torch.configs.whisper_large_v3",
                  "repro_torch.configs.qwen2_vl_2b",
-                 "repro_torch.configs.gemma2_9b"):
+                 "repro_torch.configs.gemma2_9b",
+                 "repro_torch.sharding.axes", "repro_torch.sharding.ctx",
+                 "repro_torch.launch.specs", "repro_torch.launch.costing",
+                 "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+                 "repro_torch.utils.tree", "repro_torch.utils.timing",
+                 "repro_torch.core.metrics"):
         assert name in result["modules"]
     assert proc.stdout.count("[trainer] step 3/3") == 2
     for data in ("synthetic", "sim"):

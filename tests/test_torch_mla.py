@@ -167,7 +167,8 @@ def test_padded_kernel_route_equals_the_unpadded_plain_route(monkeypatch):
     v = torch.randn(2, 24, 4, 16, generator=gen)
     got = mla_attention(q, k, v, scale=24 ** -0.5)
     assert calls == [((2, 24, 4, 64),) * 3 + (
-        dict(causal=True, window=0, softcap=0.0, scale=24 ** -0.5),)]
+        dict(causal=True, window=0, softcap=0.0, scale=24 ** -0.5,
+             work_dims=(24, 16)),)]
     with attention_impl("xla"):
         want = full_attention(q, k, v, causal=True, window=0,
                               scale=24 ** -0.5)
