@@ -149,7 +149,13 @@ Phases, in order; any failure raises and exits non-zero:
    local window 4096): bf16 and f32 at the same tolerances (bf16 only at
    the three shapes timed to price bf16 launches: the B 4 encoder, the
    decoder prompt, the M-RoPE streams), one launch each, with bound,
-   plain version and SDPA (none with a softcap);
+   plain version and SDPA (none with a softcap); then the head dims of
+   the reduced configs (16) and of the Pallas kernel's tests (32)
+   (``FLASH_SMALL_D_SHAPES``, bf16 and f32, the same tolerances): the
+   reduced gemma2 prompt (B 1, S 9, H = K = 4, window 16, softcap 50), a
+   ragged S 300 with window, softcap and GQA 2:1, a causal S 1000 with
+   GQA 2:1, and B 4, S 2048, H 8 over K 2, each with bound, plain
+   version and SDPA where it computes the same function;
 9. recurrences — ``rglru_linear_scan`` against ``ref_rglru`` (B 1 and 4,
    W 2560, S 37/512/6000 with mild decays and at B 1, S 6000 strong ones
    with exact zeros and ones; ys rtol 2e-2 atol 2e-3 in bf16, 1e-5 in f32,
@@ -237,6 +243,23 @@ script prints these phases' seconds.
    deepseek-v2-236b's serving plan at its 60 layers on meshes of 1, 4 and
    8 cards. The ``meta`` counts (``dryrun_counts``, ~40 s of host time)
    run in a spawned process of their own from phase 5 on.
+15. serve defaults — ``python -m repro_torch.launch.serve`` with no flags
+   (``serve_defaults_phase``): the reduced qwen1.5-0.5b, head dim 16, 8
+   requests of 16 tokens through 4 slots; every request must complete and
+   flash_attention must launch once per layer per prefill;
+16. examples — every ``examples_torch`` example on the card at its own
+   widths (``examples_phase``; ``EXAMPLE_CUTS`` and ``MERGE_STEPS`` cut
+   steps and are printed; each example's output goes to
+   ``build/chip_smoke_run/examples/``): serve_lm (reduced gemma2-2b, D 16:
+   flash once per layer per prefill, the prompt's logits through the
+   kernel against ``attention_impl("xla")`` within the bf16 tolerance,
+   the greedy tokens that differ printed), quickstart (completion 1.0,
+   its aggregate equal to the same example's on the CPU), scenario_zoo
+   (completion 1.0 in every sweep), merge_study (``run_points``: 20
+   (point, seed) rows in one batched rollout; throughput and merges
+   positive), phase3_dataset
+   (completion 1.0, every instance in the dataset, ce falls) and train_lm
+   (losses finite); each example's seconds.
 
 The script prints every phase's seconds, then the kernels JSON and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -393,6 +416,37 @@ FLASH_NEW_SHAPES = [
     ("gemma2-9b local S=5000", 1, 5000, 5000, 16, 8, 256, True, 4096, 50.0,
      BOTH),
 ]
+# phase 8 at the head dims of the reduced configs (16; every arch's
+# ``reduced()``) and of the Pallas kernel's tests (32), bf16 and f32, in
+# FLASH_NEW_SHAPES' form: the reduced gemma2 prompt served by serve_lm (B 1,
+# S 9, H = K = 4, window 16, softcap 50), a ragged S 300 with a window, the
+# softcap and GQA 2:1 (B 2), a ragged causal S 1000 with GQA 2:1, and the
+# timed shape B 4, S 2048, H 8 over K 2 (causal, SDPA beside it)
+FLASH_SMALL_D_SHAPES = [
+    shape for d in (16, 32) for shape in (
+        (f"D {d} reduced serve S=9", 1, 9, 9, 4, 4, d, True, 16, 50.0, BOTH),
+        (f"D {d} window softcap GQA 2:1 S=300", 2, 300, 300, 8, 4, d, True,
+         96, 50.0, BOTH),
+        (f"D {d} causal GQA 2:1 S=1000", 1, 1000, 1000, 8, 4, d, True, 0,
+         0.0, BOTH),
+        (f"D {d} B=4 S=2048", 4, 2048, 2048, 8, 2, d, True, 0, 0.0, BOTH))
+]
+# phase 15: the serve launcher on its defaults (reduced qwen1.5-0.5b, head
+# dim 16: refused by the kernel before it took D 16)
+SERVE_DEFAULTS = dict(requests=8, max_new=16)
+# phase 16: every examples_torch example on the card, at its own widths.
+# The cuts (steps only: a module constant's value, or flags) keep the phase
+# near 100 s: a small sweep's step is host-bound, 25-70 ms on an H100's
+# host (scenario_zoo took 89.5 s at 300 steps and 55.7 s at 100 on two
+# hosts, merge_study 24.0 s at 900; PERF.md). merge_study runs its
+# run_points at MERGE_STEPS in place of main's 900 steps. Each example's
+# output goes to build/chip_smoke_run/examples/<name>.log
+EXAMPLES = ("serve_lm", "quickstart", "scenario_zoo", "merge_study",
+            "phase3_dataset", "train_lm")
+EXAMPLE_CUTS = {"scenario_zoo": dict(STEPS=50),
+                "phase3_dataset": ["--quick"],
+                "train_lm": ["--steps", "40"]}
+MERGE_STEPS = 400
 # the kernel each layer kind's prefill launches
 KERNEL_OF_KIND = {"global": "flash_attention", "local": "flash_attention",
                   "recurrent": "rglru_linear_scan", "rwkv": "wkv6"}
@@ -1822,24 +1876,26 @@ def mla_flash_phase(torch, fa, ref) -> list[dict]:
     return results
 
 
-def flash_new_phase(torch, fa, ref) -> list[dict]:
-    """``flash_attention`` at ``FLASH_NEW_SHAPES``: non-causal self- and
-    cross-attention with Sq != Sk and a single query row (the whisper
-    decode step's cross attention), GQA 6:1 at D 128, olmoe-1b-7b's at S
-    2048, gemma2-9b's at S 5000; in each shape's types (bf16 and f32, or
-    bf16 alone) against ``ref_attention`` at ``FLASH_TOL``, one launch
-    each; kernel, plain version, bound and SDPA
-    (``is_causal`` only where Sq = Sk; ``enable_gqa``) timed, SDPA where
-    it computes the same function (no softcap, no window)."""
+def flash_new_phase(torch, fa, ref, shapes=FLASH_NEW_SHAPES,
+                    seed: int = 12) -> list[dict]:
+    """``flash_attention`` at ``shapes``: ``FLASH_NEW_SHAPES`` (non-causal
+    self- and cross-attention with Sq != Sk and a single query row (the
+    whisper decode step's cross attention), GQA 6:1 at D 128, olmoe-1b-7b's
+    at S 2048, gemma2-9b's at S 5000) or ``FLASH_SMALL_D_SHAPES`` (D 16
+    and 32); in each shape's types (bf16 and f32, or bf16 alone) against
+    ``ref_attention`` at ``FLASH_TOL``, one launch each; kernel, plain
+    version, bound and SDPA (``is_causal`` only where Sq = Sk;
+    ``enable_gqa``) timed, SDPA where it computes the same function (no
+    softcap, no window)."""
     import torch.nn.functional as F
 
     from repro_torch.launch.costing import TENSOR_OPS_PER_S, bound, flash_cost
 
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(12)
+    gen.manual_seed(seed)
     results = []
     for (label, b, sq, sk, h, kh, d, causal, window, cap,
-         dtypes) in FLASH_NEW_SHAPES:
+         dtypes) in shapes:
         kw = dict(causal=causal, window=window, softcap=cap)
         for dtype in dtypes:
             dt = getattr(torch, dtype)
@@ -2957,6 +3013,231 @@ def dryrun_phase(torch, fa, counts: dict, train: dict, served: dict,
     return out
 
 
+def serve_defaults_phase(torch, fa) -> dict:
+    """Phase 15: ``repro_torch.launch.serve.main([])`` on the card with its
+    defaults (the reduced qwen1.5-0.5b, head dim 16, bf16); the flash
+    launch count set to 0 just before and read just after. Every request
+    must complete with its ``--max-new`` tokens and the kernel must have
+    launched once per attention layer per prefill."""
+    from repro_torch.launch import serve as serve_launcher
+
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    res = serve_launcher.main([])
+    launches = fa.launches["flash_attention"]
+    cfg, st = res["model"].cfg, res["stats"]
+    if sorted(res["results"]) != list(range(SERVE_DEFAULTS["requests"])) or \
+            any(len(t) != SERVE_DEFAULTS["max_new"]
+                for t in res["results"].values()):
+        raise AssertionError(f"serve defaults: results {res['results']}")
+    per = kernels_per_prefill(cfg)["flash_attention"]
+    if cfg.head_dim != 16 or launches != per * st["prefills"]:
+        raise AssertionError(
+            f"serve defaults: {cfg.name} (head dim {cfg.head_dim}) launched "
+            f"flash_attention {launches} times for {st['prefills']} "
+            f"prefills, expected {per} a prefill")
+    out = dict(arch=cfg.name, head_dim=cfg.head_dim, launches=launches,
+               prefills=st["prefills"], wall_s=res["seconds"],
+               phase_s=time.perf_counter() - t0)
+    log(f"serve defaults: python -m repro_torch.launch.serve on the card: "
+        f"{cfg.name}, head dim {cfg.head_dim}, {len(res['results'])}/"
+        f"{SERVE_DEFAULTS['requests']} requests of "
+        f"{SERVE_DEFAULTS['max_new']} tokens; flash_attention {launches} = {per} x {st['prefills']} "
+        f"prefills; wall {res['seconds']:.3f} s")
+    return out
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a fresh module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv: list[str], device: str = "cuda"):
+    """Run one example's ``main`` with ``argv`` on ``device``, cut as
+    ``EXAMPLE_CUTS`` says (a dict sets module constants, a list adds
+    flags), its output into ``build/chip_smoke_run/examples/<name>[-cpu]
+    .log``; (result, seconds)."""
+    mod = load_example(name)
+    cut = EXAMPLE_CUTS.get(name, [])
+    if isinstance(cut, dict):
+        for key, val in cut.items():
+            setattr(mod, key, val)
+    else:
+        argv = [*argv, *cut]
+    logs = WORK / "examples"
+    logs.mkdir(parents=True, exist_ok=True)
+    suffix = "" if device == "cuda" else f"-{device}"
+    t0 = time.perf_counter()
+    with open(logs / f"{name}{suffix}.log", "w") as f, \
+            contextlib.redirect_stdout(f):
+        out = mod.main([*argv, "--device", device])
+    return out, time.perf_counter() - t0
+
+
+def examples_phase(torch, fa, ref) -> dict:
+    """Phase 16: every ``examples_torch`` example on the card at its own
+    widths (the steps cut by ``EXAMPLE_CUTS``, printed), each with its
+    gates and seconds:
+
+    * serve_lm (reduced gemma2-2b, head dim 16, bf16): flash launched once
+      per layer in the ``greedy_generate`` prefill and in each engine
+      prefill (the counts set to 0 just before ``main`` and read just
+      after); the prompt's logits through the kernel against
+      ``attention_impl("xla")`` within phase 8's bf16 tolerance, and the
+      greedy tokens of the two routes, the count that differ printed;
+    * quickstart: completion 1.0, the aggregate equal to the same example's
+      on the CPU (integers exact, floats within rtol 1e-5, phase 5's
+      tolerance), every loss finite;
+    * scenario_zoo: completion 1.0 in every sweep (``sweep_one`` asserts
+      it) and in the mixed one;
+    * merge_study: every point's numbers finite, throughput and merges
+      positive;
+    * phase3_dataset: completion 1.0, the dataset covers every instance,
+      ce falls, losses finite;
+    * train_lm: losses finite.
+    """
+    import numpy as np
+
+    from repro_torch.models.attention import attention_impl
+    from repro_torch.serve.engine import greedy_generate
+
+    out = {}
+    for name, cut in EXAMPLE_CUTS.items():
+        log(f"examples: {name} cut: {cut}")
+    log(f"examples: merge_study cut: run_points(P_CAVS, steps={MERGE_STEPS}) "
+        "in place of main()'s 900 steps")
+
+    fa.reset_launches()
+    res, sec = run_example("serve_lm", [])
+    launches = fa.launches["flash_attention"]
+    model, params, prompt = res["model"], res["params"], res["prompt"]
+    per = kernels_per_prefill(model.cfg)["flash_attention"]
+    prefills = 1 + res["stats"]["prefills"]
+    if model.cfg.head_dim != 16 or launches != per * prefills:
+        raise AssertionError(
+            f"serve_lm: flash_attention launched {launches} times, expected "
+            f"{per} x {prefills} prefills (head dim {model.cfg.head_dim})")
+    if sorted(len(t) for t in res["results"].values()) != [12] * 6:
+        raise AssertionError(f"serve_lm: results {res['results']}")
+    with torch.inference_mode():
+        kern, _ = model.apply(params, {"tokens": prompt})
+        with attention_impl("xla"):
+            plain, _ = model.apply(params, {"tokens": prompt})
+            plain_tokens = greedy_generate(model, params, prompt, steps=8)
+    torch.testing.assert_close(kern.float(), plain.float(),
+                               **FLASH_TOL["bfloat16"])
+    logit_err = float((kern.float() - plain.float()).abs().max())
+    differ = int((plain_tokens != res["greedy"]).sum())
+    out["serve_lm"] = dict(seconds=sec, launches=launches, prefills=prefills,
+                           logits_max_abs_err=logit_err,
+                           greedy_tokens_differ=differ,
+                           greedy_tokens=res["greedy"].numel())
+    log(f"examples: serve_lm {model.cfg.name} (head dim "
+        f"{model.cfg.head_dim}, window {model.cfg.window}, softcap "
+        f"{model.cfg.attn_logit_softcap}) in {sec:.1f} s: flash_attention "
+        f"{launches} = {per} x {prefills} prefills; prompt logits through the "
+        f"kernel vs attention_impl('xla') max |err| {logit_err:.3g} (tol "
+        f"{FLASH_TOL['bfloat16']}); greedy tokens differing between the two "
+        f"routes: {differ} of {res['greedy'].numel()}")
+    del model, params, res
+
+    res, sec = run_example("quickstart", [])
+    cpu, cpu_sec = run_example("quickstart", [], device="cpu")
+    if res["completion"] != 1.0 or cpu["completion"] != 1.0:
+        raise AssertionError("quickstart: completion below 1.0")
+
+    def flat(d, prefix=""):
+        items = {}
+        for k, v in d.items():
+            items.update(flat(v, f"{prefix}{k}.") if isinstance(v, dict)
+                         else {prefix + k: v})
+        return items
+
+    got, want = flat(res["summary"]), flat(cpu["summary"])
+    if list(got) != list(want):
+        raise AssertionError("quickstart: the aggregates' keys differ")
+    for k, v in want.items():
+        if isinstance(v, int):
+            if got[k] != v:
+                raise AssertionError(f"quickstart: {k} {got[k]} != {v}")
+        else:
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, err_msg=k)
+    ces = [h["ce"] for h in res["trainer"].history]
+    if not np.isfinite(ces).all():
+        raise AssertionError(f"quickstart: losses {ces}")
+    out["quickstart"] = dict(seconds=sec, cpu_seconds=cpu_sec, ce=ces)
+    log(f"examples: quickstart in {sec:.1f} s (the CPU run {cpu_sec:.1f} s): "
+        f"completion 1.0, the aggregate equal to the CPU's ({len(want)} "
+        f"fields; throughput {got['total_throughput']}, merges "
+        f"{got['total_merges']}); ce {ces[0]:.3f} -> {ces[-1]:.3f}")
+
+    res, sec = run_example("scenario_zoo", [])
+    if res["completion"] != 1.0:
+        raise AssertionError(f"scenario_zoo: completion {res['completion']}")
+    out["scenario_zoo"] = dict(seconds=sec, scenarios=len(res["zoo"]))
+    log(f"examples: scenario_zoo in {sec:.1f} s: {len(res['zoo'])} sweeps "
+        "and the mixed one, each at completion 1.0")
+
+    mod = load_example("merge_study")
+    t0 = time.perf_counter()
+    rows = np.asarray(mod.run_points(mod.P_CAVS, steps=MERGE_STEPS,
+                                     device="cuda"), dtype=np.float64)
+    sec = time.perf_counter() - t0
+    if not np.isfinite(rows).all() or not (rows[:, :2] > 0).all():
+        raise AssertionError(f"merge_study: rows {rows.tolist()}")
+    out["merge_study"] = dict(seconds=sec, steps=MERGE_STEPS,
+                              p_cav=list(mod.P_CAVS), rows=rows.tolist())
+    log(f"examples: merge_study in {sec:.1f} s: {len(mod.P_CAVS)} points x 4 "
+        f"seeds in one batched rollout of {MERGE_STEPS} steps; (throughput, "
+        f"merges, ramp_blocked, mean_speed) at p_cav {list(mod.P_CAVS)}: "
+        f"{np.round(rows, 3).tolist()}")
+
+    import shutil
+
+    shutil.rmtree(WORK / "phase3", ignore_errors=True)
+    res, sec = run_example("phase3_dataset", ["--dataset-dir",
+                                              str(WORK / "phase3")])
+    ds, tr = res["dataset"], res["trainer"]
+    ces = [h["ce"] for h in tr.history]
+    if res["info"]["completion_rate"] != 1.0 or ds.n_instances != 8 or \
+            not np.isfinite(ces).all() or not ces[-1] < ces[0]:
+        raise AssertionError(f"phase3_dataset: completion "
+                             f"{res['info']['completion_rate']}, "
+                             f"{ds.n_instances} instances, ce {ces}")
+    out["phase3_dataset"] = dict(seconds=sec, instances=ds.n_instances,
+                                 corpus_tokens=int(res["corpus"].shape[0]),
+                                 ce=ces)
+    log(f"examples: phase3_dataset in {sec:.1f} s: completion 1.0 with "
+        f"{len(res['info']['failure_events'])} failure event(s), "
+        f"{ds.n_instances} instances in {len(ds.manifest['shards'])} shards, "
+        f"corpus {res['corpus'].shape[0]} tokens; ce {ces[0]:.3f} -> "
+        f"{ces[-1]:.3f}")
+
+    res, sec = run_example("train_lm", [])
+    ces = [h["ce"] for h in res["trainer"].history]
+    if not np.isfinite(ces).all():
+        raise AssertionError(f"train_lm: losses {ces}")
+    hist = res["trainer"].history[-1]
+    out["train_lm"] = dict(seconds=sec, ce=ces,
+                           params=res["params_count"]["total_with_emb"],
+                           steps_per_s=hist["steps_per_s"])
+    log(f"examples: train_lm {res['cfg'].name} "
+        f"({res['params_count']['total_with_emb'] / 1e6:.1f}M parameters) in "
+        f"{sec:.1f} s: ce {ces[0]:.3f} -> {ces[-1]:.3f}, "
+        f"{hist['steps_per_s']:.2f} steps/s (host clock)")
+    out["seconds"] = {name: out[name]["seconds"] for name in EXAMPLES}
+    log("examples: seconds " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["seconds"].items())
+        + f" (quickstart's CPU run {out['quickstart']['cpu_seconds']:.1f})")
+    return out
+
+
 def states_equal(torch, a, b, path="state") -> None:
     if a is None and b is None:
         return
@@ -3164,6 +3445,10 @@ def main() -> None:
     fl_new = flash_new_phase(torch, fa, ref)
     fl_results += fl_new
     flash_new_s = time.perf_counter() - t_flash_new
+    t_small = time.perf_counter()
+    fl_small = flash_new_phase(torch, fa, ref, FLASH_SMALL_D_SHAPES, seed=13)
+    fl_results += fl_small
+    flash_small_s = time.perf_counter() - t_small
     margin = flash_margin(torch, fa, ref)
     if margin["crossed"]:
         raise AssertionError(f"flash_attention bf16: {margin['crossed']} of "
@@ -3241,6 +3526,18 @@ def main() -> None:
     counter_pool.shutdown()
     dryrun_phase(torch, fa, counts, train, served, smi)
     phase_done("14 dryrun")
+
+    # 15. the serve launcher on its defaults (head dim 16); 16. the examples
+    serve_defaults = serve_defaults_phase(torch, fa)
+    phase_done("15 serve defaults")
+    examples = examples_phase(torch, fa, ref)
+    phase_done("16 examples")
+    small_s = {"phase 8 D 16/32": flash_small_s,
+               "15 serve defaults": phase_s["15 serve defaults"],
+               "16 examples": phase_s["16 examples"]}
+    log("the head-dim repair and the examples: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in small_s.items())
+        + f"; {sum(small_s.values()):.1f} s in all")
     train_new_s = sum(train["small"][a]["arch_s"]
                       for a in ("whisper-large-v3", "qwen2-vl-2b"))
     new_s = {"phase 8 new shapes": flash_new_s, "whisper-large-v3":
@@ -3266,11 +3563,16 @@ def main() -> None:
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
         replaces="src/repro/kernels/flash_attention.py:135",
         launches=launched("flash_attention") + whisper["launches"]
-        + mrope["launches"],
+        + mrope["launches"] + serve_defaults["launches"]
+        + examples["serve_lm"]["launches"],
         launches_by_path={**{arch: out["launches"]["flash_attention"]
                              for arch, out in served.items()},
                           "whisper-large-v3": whisper["launches"],
                           "qwen2-vl-2b (M-RoPE)": mrope["launches"],
+                          "serve launcher defaults (D 16)":
+                              serve_defaults["launches"],
+                          "examples_torch/serve_lm.py (D 16)":
+                              examples["serve_lm"]["launches"],
                           "deepseek-v2-236b (2 layers, phase 11)":
                               deepseek["launches"],
                           "gemma2-9b (2 layers, phase 11)":
@@ -3282,7 +3584,9 @@ def main() -> None:
         library=main_fl["library"], library_ms=main_fl["library_ms"],
         shapes=fl_results, bf16_margin=margin,
         serve=served["gemma2-2b"], deepseek_vs_plain=deepseek,
-        gemma2_9b_vs_plain=gemma9, whisper=whisper, new_work_s=new_s))
+        gemma2_9b_vs_plain=gemma9, whisper=whisper, new_work_s=new_s,
+        small_head_dims=fl_small, serve_defaults=serve_defaults,
+        examples=examples))
     for name, source, replaces, main_row, rows, arch in (
             ("rglru_linear_scan", RGLRU_SOURCE,
              "src/repro/kernels/rglru.py:74", main_rg, rg_results,

@@ -25,10 +25,15 @@
 //    one CTA per SM. Keys come in tiles of BK = 64. O (64 x 256 f32 at D
 //    256) is 128 registers a thread and S 32 more: the consumers need up
 //    to 238 of their 240.
-// 2. S = Q K^T: wgmma m64n64k16, Q and K both K-major in 128-byte-swizzled
-//    shared memory. A swizzled row is 64 bf16 columns, so every tile
-//    arrives as D / 64 column slabs (one TMA box each) and the descriptors
-//    step 32 bytes per k-step inside a slab, a slab at a time across D.
+// 2. S = Q K^T: wgmma m64n64k16, Q and K both K-major in swizzled shared
+//    memory. A swizzled row is min(2 D, 128) bytes: 64 bf16 columns under
+//    the 128-byte swizzle at D >= 64, and one whole row of 16 or 32
+//    columns under the 32- or 64-byte swizzle at D 16 and 32 (the reduced
+//    configs' and the Pallas kernel's tests' head dims). Every tile arrives
+//    as D / columns slabs (one TMA box each), the TMA maps and the wgmma
+//    descriptors (layout type 1, 2 or 3) use the same swizzle, and the
+//    descriptors step 32 bytes per k-step inside a slab, a slab at a time
+//    across D (D 16: a single k-step).
 // 3. The softmax runs on the accumulator fragment in registers: a row lies
 //    on the four threads of a quad (max by two xor-shuffles; the row sum is
 //    kept per thread and summed once at the end). log2(e) is folded into
@@ -44,7 +49,8 @@
 //    2^-17 of p) and both go through the tensor cores against the same V
 //    tile, into the same f32 accumulator: two register-A wgmma per k-step
 //    (the f32 fragment of S, packed in pairs, is the A fragment), V as an
-//    MN-major B operand (the transpose bit, 16-bit types only); O is
+//    MN-major B operand (the transpose bit, 16-bit types only) and N = D
+//    (m64n16k16 up to m64n256k16); O is
 //    scaled by alpha each tile. The second product doubles P V's tensor
 //    work (half of the kernel's) and costs no extra registers at the peak:
 //    the two packed halves take the 32 registers the f32 scores held.
@@ -59,7 +65,7 @@
 // 6. Query blocks run longest causal rows first (the grid walks them in
 //    reverse, all heads of a block side by side).
 // 7. K and V land on their own "full" mbarriers in a ring of 2 stages at
-//    D 256 (Q 64 KB + 2 x 64 KB) and 3 at D 64 and 128; the consumers
+//    D 256 (Q 64 KB + 2 x 64 KB) and 3 below it; the consumers
 //    release a stage on its "empty" mbarrier. The two consumer warpgroups
 //    overlap each other's softmax and products only as the scheduler
 //    interleaves them: no explicit ping-pong, and no intra-warpgroup
@@ -288,6 +294,8 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
              int B, int Sq, int Sk, int H, int KH, int causal, int window,
              float softcap, float scale, cudaStream_t stream) {
   switch (D) {
+    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream);
@@ -303,21 +311,35 @@ namespace hopper {
 constexpr int BQ = 128;        // query rows per CTA: two consumer warpgroups
 constexpr int BK = 64;         // keys per tile
 constexpr int THREADS = 384;   // producer warpgroup + two consumer warpgroups
-constexpr int SWZ = 128;       // bytes of a swizzled row: 64 bf16 columns
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
-  static constexpr int SLABS = D / 64;              // 64-column slabs of a row
+  // bytes of a swizzled row (the swizzle's width) and its bf16 columns:
+  // 128 bytes (64 columns) at D >= 64, the whole row at D 16 and 32
+  static constexpr int ROW = 2 * D < 128 ? 2 * D : 128;
+  static constexpr int COLS = ROW / 2;
+  static constexpr int SLABS = D / COLS;            // column slabs of a row
+  // the wgmma descriptor's layout type: 1 = 128-, 2 = 64-, 3 = 32-byte swizzle
+  static constexpr uint64_t LAYOUT = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
   static constexpr int STAGES = D == 256 ? 2 : 3;   // depth of the K/V ring
-  static constexpr int Q_SLAB = BQ * SWZ;           // bytes of one q slab
-  static constexpr int KV_SLAB = BK * SWZ;          // bytes of one k or v slab
+  static constexpr int Q_SLAB = BQ * ROW;           // bytes of one q slab
+  static constexpr int KV_SLAB = BK * ROW;          // bytes of one k or v slab
   static constexpr int Q_BYTES = SLABS * Q_SLAB;    // BQ * D * 2
   static constexpr int KV_BYTES = SLABS * KV_SLAB;  // BK * D * 2
   static constexpr int BARS = 1 + 3 * STAGES;       // q, full k/v, empty
   // 1024 bytes of slack to align the buffers to the swizzle atom
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
+  static_assert(D % 16 == 0 && ROW % 32 == 0, "a row holds whole k-steps");
 };
+
+// the ROW-byte swizzle (TMA's and wgmma's) of byte offset `off` from a
+// 1024-byte-aligned buffer: the 16-byte chunk bits [4, 4 + log2(ROW / 16))
+// XOR the bits above the 128-byte line, [7, 7 + log2(ROW / 16))
+template <int ROW>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  return off ^ (((off >> 7) & (ROW / 16 - 1)) << 4);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -373,12 +395,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma descriptor of a 128-byte-swizzled operand at shared address `addr`:
-// leading and stride byte offsets in 16-byte units, layout type 1 (SW128)
+// wgmma descriptor of a swizzled operand at shared address `addr`: leading
+// and stride byte offsets in 16-byte units, and the layout type of D's
+// swizzle (Cfg<D>::LAYOUT)
+template <int D>
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | (Cfg<D>::LAYOUT << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -449,6 +473,38 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[8] += A . B, m64n16k16; A (bf16 pairs) in registers, B MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[16] += A . B, m64n32k16; A (bf16 pairs) in registers, B MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -538,7 +594,9 @@ __device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
                                          const uint32_t (&a)[4], uint64_t dv) {
   if constexpr (D == 256) wgmma_rs_n256(acc, a, dv);
   else if constexpr (D == 128) wgmma_rs_n128(acc, a, dv);
-  else wgmma_rs_n64(acc, a, dv);
+  else if constexpr (D == 64) wgmma_rs_n64(acc, a, dv);
+  else if constexpr (D == 32) wgmma_rs_n32(acc, a, dv);
+  else wgmma_rs_n16(acc, a, dv);
 }
 
 // wait for every wgmma this thread's warpgroup has committed
@@ -546,19 +604,21 @@ __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// S = Q K^T for one key tile, issued: D / 16 k-steps, slab by slab
+// S = Q K^T for one key tile, issued: D / 16 k-steps, slab by slab (a
+// slab row holds ROW / 32 k-steps of 32 bytes)
 template <int D>
 __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint64_t dq,
                                         uint64_t dk) {
   using C = Cfg<D>;
+  constexpr int KPR = C::ROW / 32;  // k-steps per swizzled row
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
   pin(sc);
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(sc, dq + ((kk / 4 * C::Q_SLAB + kk % 4 * 32) >> 4),
-                 dk + ((kk / 4 * C::KV_SLAB + kk % 4 * 32) >> 4), kk > 0);
+    wgmma_ss_n64(sc, dq + ((kk / KPR * C::Q_SLAB + kk % KPR * 32) >> 4),
+                 dk + ((kk / KPR * C::KV_SLAB + kk % KPR * 32) >> 4), kk > 0);
   wg_commit();
 }
 
@@ -573,7 +633,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t d = dv + ((kk * 16 * SWZ) >> 4);
+    const uint64_t d = dv + ((kk * 16 * Cfg<D>::ROW) >> 4);
     wgmma_pv<D>(acc, p_hi[kk], d);
     wgmma_pv<D>(acc, p_lo[kk], d);
   }
@@ -671,12 +731,13 @@ __device__ __forceinline__ uint32_t tile_parity(int t) {
 }
 template <int D>
 __device__ __forceinline__ uint64_t k_desc(uint32_t sK, int t) {
-  return make_desc(sK + t % Cfg<D>::STAGES * Cfg<D>::KV_BYTES, 16, 8 * SWZ);
+  return make_desc<D>(sK + t % Cfg<D>::STAGES * Cfg<D>::KV_BYTES, 16,
+                      8 * Cfg<D>::ROW);
 }
 template <int D>
 __device__ __forceinline__ uint64_t v_desc(uint32_t sV, int t) {
-  return make_desc(sV + t % Cfg<D>::STAGES * Cfg<D>::KV_BYTES,
-                   Cfg<D>::KV_SLAB, 8 * SWZ);
+  return make_desc<D>(sV + t % Cfg<D>::STAGES * Cfg<D>::KV_BYTES,
+                      Cfg<D>::KV_SLAB, 8 * Cfg<D>::ROW);
 }
 // whether the key tile at k0 holds a key that a row of the warpgroup
 // (positions wg_first .. wg_last) sees
@@ -755,7 +816,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, C::Q_BYTES);
       for (int j = 0; j < C::SLABS; ++j)
-        tma_load(sQ + j * C::Q_SLAB, &tq, q_full, 64 * j, h, q0, b);
+        tma_load(sQ + j * C::Q_SLAB, &tq, q_full, C::COLS * j, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % C::STAGES;
         mbar_wait(empty_bar<D>(q_full, s), tile_parity<D>(t) ^ 1);
@@ -764,10 +825,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         const uint32_t fk = full_k<D>(q_full, s), fv = full_v<D>(q_full, s);
         mbar_expect_tx(fk, C::KV_BYTES);
         for (int j = 0; j < C::SLABS; ++j)
-          tma_load(sK + off + j * C::KV_SLAB, &tk, fk, 64 * j, kh, k0, b);
+          tma_load(sK + off + j * C::KV_SLAB, &tk, fk, C::COLS * j, kh, k0, b);
         mbar_expect_tx(fv, C::KV_BYTES);
         for (int j = 0; j < C::SLABS; ++j)
-          tma_load(sV + off + j * C::KV_SLAB, &tv, fv, 64 * j, kh, k0, b);
+          tma_load(sV + off + j * C::KV_SLAB, &tv, fv, C::COLS * j, kh, k0, b);
       }
     }
   } else {
@@ -794,7 +855,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     float m[2] = {NEG_INF, NEG_INF};
     float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-    const uint64_t dq = make_desc(sQ + cw * 64 * SWZ, 16, 8 * SWZ);
+    const uint64_t dq = make_desc<D>(sQ + cw * 64 * C::ROW, 16, 8 * C::ROW);
     // the tiles this warpgroup needs form one run [t0, t1): the causal
     // bound can cut its end, the window its start
     int t0 = 0;
@@ -834,6 +895,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
     // normalise into this warpgroup's rows of Q's buffer (same swizzle),
     // then masked 16-byte stores of whole rows
+    constexpr int CPR = C::ROW / 16;  // 16-byte chunks of a swizzled row
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -847,8 +909,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
-        const uint32_t off = (i / 8) * C::Q_SLAB + row * SWZ +
-                             (((i % 8) ^ (row & 7)) * 16) + col * 2;
+        const uint32_t off =
+            (i / CPR) * C::Q_SLAB +
+            swizzle<C::ROW>(row * C::ROW + (i % CPR) * 16) + col * 2;
         *reinterpret_cast<uint32_t*>(smem + off) =
             pack_bf16(acc[4 * i + 2 * r] * inv[r],
                       acc[4 * i + 2 * r + 1] * inv[r]);
@@ -860,8 +923,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       const int row = cw * 64 + idx / CHUNKS;
       const int c = idx % CHUNKS;
       if (q0 + row < Sq) {
-        const uint32_t off =
-            (c / 8) * C::Q_SLAB + row * SWZ + (((c % 8) ^ (row & 7)) * 16);
+        const uint32_t off = (c / CPR) * C::Q_SLAB +
+                             swizzle<C::ROW>(row * C::ROW + (c % CPR) * 16);
         *reinterpret_cast<uint4*>(
             o + (((int64_t)b * Sq + q0 + row) * H + h) * D + c * 8) =
             *reinterpret_cast<const uint4*>(smem + off);
@@ -898,21 +961,25 @@ EncodeTiled encode_tiled() {
 }
 
 // 4-D map over a contiguous bf16 [B, S, heads, D] tensor, dims innermost
-// first (D, heads, S, B); boxes of 64 columns x 1 head x `rows` x 1,
-// 128-byte swizzled; out-of-bounds elements read as zero
+// first (D, heads, S, B); boxes of `cols` columns x 1 head x `rows` x 1,
+// swizzled over 2 * cols bytes (32, 64 or 128); out-of-bounds elements
+// read as zero
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-              int D, int rows) {
+              int D, int cols, int rows) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -921,8 +988,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KH, int causal, int window,
            float softcap, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, Sq, H, D, BQ) || !make_map(&tk, k, B, Sk, KH, D, BK) ||
-      !make_map(&tv, v, B, Sk, KH, D, BK))
+  constexpr int cols = Cfg<D>::COLS;
+  if (!make_map(&tq, q, B, Sq, H, D, cols, BQ) ||
+      !make_map(&tk, k, B, Sk, KH, D, cols, BK) ||
+      !make_map(&tv, v, B, Sk, KH, D, cols, BK))
     return (int)cudaErrorInvalidValue;
   const int n_qblocks = (Sq + BQ - 1) / BQ;
   if ((int64_t)n_qblocks * H > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -943,6 +1012,12 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
              float softcap, float scale, cudaStream_t stream) {
   const bool cap = softcap > 0.f;
   switch (D) {
+    case 16:
+      return cap ? launch<16, true>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream)
+                 : launch<16, false>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream);
+    case 32:
+      return cap ? launch<32, true>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream)
+                 : launch<32, false>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream);
     case 64:
       return cap ? launch<64, true>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream)
                  : launch<64, false>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, softcap, scale, stream);
@@ -963,8 +1038,9 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
 
 // q [B, Sq, H, D], k/v [B, Sk, KH, D], o [B, Sq, H, D], all contiguous,
 // 16-byte aligned and of one type (is_bf16: bf16, on the Hopper kernel;
-// else f32, on the CUDA-core kernel); D in {64, 128, 256}, the head dims
-// of the Pallas kernel's block table.
+// else f32, on the CUDA-core kernel); D in {16, 32, 64, 128, 256}: the
+// reduced configs' 16, the Pallas kernel's tests' 32 and the published
+// configs' widths.
 // Returns the CUDA error of the launch (0 when it was accepted).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int is_bf16,

@@ -39,8 +39,9 @@ from repro_torch.kernels.ref import ref_attention
 #: launch count; only a real kernel launch increments it
 launches = {"flash_attention": 0}
 
-#: head dims the kernel is instantiated for (the Pallas kernel's table)
-HEAD_DIMS = (64, 128, 256)
+#: head dims the kernel is instantiated for: the reduced configs' 16, the
+#: Pallas kernel's tests' 32 and the published configs' widths
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

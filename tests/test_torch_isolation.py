@@ -20,6 +20,9 @@ import pytest
 import torch
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+EXAMPLES = SRC.parent / "examples_torch"
+EXAMPLE_NAMES = ("serve_lm", "quickstart", "scenario_zoo", "merge_study",
+                 "phase3_dataset", "train_lm")
 
 PROBE = r"""
 import json, pkgutil, importlib, runpy, sys
@@ -150,9 +153,9 @@ def test_no_jax_or_reference_imports(tmp_path):
 
 
 def test_sources_never_name_jax_or_reference():
-    for path in sorted((SRC / "repro_torch").rglob("*.py")) + [
-        SRC.parent / "chip_smoke.py"
-    ]:
+    for path in sorted((SRC / "repro_torch").rglob("*.py")) + sorted(
+        EXAMPLES.glob("*.py")
+    ) + [SRC.parent / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]):
@@ -192,3 +195,42 @@ def test_cuda_request_without_card_raises(monkeypatch):
         with pytest.raises(RuntimeError, match="cuda"):
             train_launcher.main(["--arch", arch, "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+EXAMPLE_PROBE = r"""
+import importlib.util, json, sys
+for name in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(name, f"{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"leaked": leaked}))
+"""
+
+
+def test_examples_import_no_jax_or_reference():
+    """Importing every ``examples_torch`` example loads no ``jax``,
+    ``jaxlib`` or ``repro``."""
+    assert sorted(p.stem for p in EXAMPLES.glob("*.py")) == sorted(
+        EXAMPLE_NAMES)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", EXAMPLE_PROBE,
+                           *EXAMPLE_NAMES], env=env, capture_output=True,
+                          text=True, timeout=300, cwd=EXAMPLES)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["leaked"] == []
+
+
+@pytest.mark.parametrize("name", EXAMPLE_NAMES)
+def test_example_default_device_raises_without_card(name, monkeypatch):
+    """``--device`` left at its default (``cuda``) raises without a card,
+    before any work; nothing falls back to the CPU."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main([])

@@ -337,6 +337,15 @@ def rand_qkv(seed, dev, dtype, b, sq, sk, h, kh, d, q_scale=1.0):
     (4, 224, 1500, 20, 20, 64, False, 0, 0.0),  # cross attention, Sq != Sk
     (4, 1, 1500, 20, 20, 64, False, 0, 0.0),    # decode cross: one query row
     (1, 600, 600, 12, 2, 128, True, 0, 0.0),    # qwen2-vl GQA 6:1, D 128
+    # the reduced configs' D 16 and the Pallas kernel's tests' D 32: the
+    # 32- and 64-byte swizzles of the bf16 kernel
+    (1, 9, 9, 4, 4, 16, True, 16, 50.0),        # reduced gemma2 prompt
+    (1, 37, 37, 4, 4, 16, True, 0, 50.0),       # D 16 ragged, softcap
+    (2, 300, 300, 4, 2, 16, True, 96, 50.0),    # D 16 window, GQA, B 2
+    (1, 64, 200, 4, 1, 16, True, 50, 0.0),      # D 16 end-aligned, MQA
+    (1, 129, 129, 4, 2, 32, True, 0, 0.0),      # D 32 ragged rows and keys
+    (2, 300, 300, 8, 2, 32, True, 96, 50.0),    # D 32 window, GQA 4:1
+    (1, 77, 200, 4, 4, 32, False, 0, 0.0),      # D 32 non-causal, Sq != Sk
 ])
 def test_flash_attention_matches_plain(cuda, b, sq, sk, h, kh, d, causal,
                                        window, cap, dtype):
@@ -374,6 +383,22 @@ def test_flash_attention_softcap_at_the_cap(cuda, q_scale, cap, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32])
+def test_flash_attention_small_head_dims_at_the_cap(cuda, d, dtype):
+    """D 16 and 32 with scores that reach gemma2's cap of 50 (q x 20),
+    causal and on a window: the softcap path of the small-row kernels."""
+    q, k, v = rand_qkv(d, cuda, dtype, 2, 300, 300, 8, 4, d, 20.0)
+    for window in (0, 64):
+        got = fa.flash_attention(q, k, v, causal=True, window=window,
+                                 softcap=50.0)
+        want = ref.ref_attention(q, k, v, True, window, 50.0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_flash_attention_bf16_never_crosses_on_large_scores(cuda):
     """32 seeded q x 20 draws at gemma2-2b's global shape (S 512, softcap
     50): the bf16 kernel forms P V from p at about f32 precision (p_hi +
@@ -395,7 +420,7 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     """A CUDA tensor the kernel cannot take raises; it never runs the plain
     version instead. The bf16 kernel's TMA loads need 16-byte-aligned
     rows, so a bf16 q that starts one element past an aligned address is
-    refused (the Pallas table's head dims are all taken)."""
+    refused; so is a head dim outside ``HEAD_DIMS`` (48)."""
     q, k, v = rand_qkv(0, cuda, torch.bfloat16, 1, 32, 32, 4, 2, 64)
     before = fa.launches["flash_attention"]
     with pytest.raises(TypeError):
@@ -406,8 +431,8 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                            k, v)
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q[..., :16].contiguous(), k[..., :16].contiguous(),
-                           v[..., :16].contiguous())
+        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v[..., :48].contiguous())
     with pytest.raises(ValueError):
         fa.flash_attention(q, k.cpu(), v)
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
@@ -422,8 +447,8 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
 def test_model_attention_goes_through_the_kernel(cuda):
     """A reduced gemma2 forward on the card launches the kernel once per
     layer by default and matches the plain path (f32: the kernel and the
-    plain path sum in other orders). Head dim 64: the kernel takes the
-    Pallas kernel's head dims, 64, 128 and 256."""
+    plain path sum in other orders). Head dim 64; the reduced configs' 16
+    is ``test_reduced_model_serves_through_the_kernel``'s."""
     cfg = get_arch("gemma2-2b").reduced(dtype="float32", head_dim=64)
     model = build_model(cfg, cuda)
     params = model.init(torch.Generator(device=cuda).manual_seed(0))
@@ -435,6 +460,30 @@ def test_model_attention_goes_through_the_kernel(cuda):
         want, _ = model.apply(params, {"tokens": toks.to(cuda)})
     assert fa.launches["flash_attention"] == cfg.n_layers
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_model_serves_through_the_kernel(cuda, dtype):
+    """The reduced gemma2 as ``reduced()`` makes it (head dim 16, window
+    16, softcap 50) prefills through the kernel once per layer and matches
+    the plain path: the default serve launcher's size, which the kernel
+    refused before it took D 16."""
+    cfg = get_arch("gemma2-2b").reduced(dtype=dtype)
+    assert cfg.head_dim == 16
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 40)))
+    fa.reset_launches()
+    with torch.inference_mode():
+        got, _ = model.apply(params, {"tokens": toks.to(cuda)})
+        assert fa.launches["flash_attention"] == cfg.n_layers
+        with attention_impl("xla"):
+            want, _ = model.apply(params, {"tokens": toks.to(cuda)})
+    # f32: the two paths sum in other orders; bf16: the kernel's tolerance
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == "float32"
+           else FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.cuda

@@ -154,7 +154,7 @@ def test_mla_decode_drops_a_write_past_the_cache():
 
 def test_padded_kernel_route_equals_the_unpadded_plain_route(monkeypatch):
     """The kernel route hands the flash attention wrapper q, k and v zero-
-    padded to one kernel head dim (24 → 64 here), and its
+    padded to one kernel head dim (24 → 32 here), and its
     output, sliced to v's 16 columns, equals the plain route on the
     unpadded tensors; the layer's output does too."""
     calls = []
@@ -166,7 +166,7 @@ def test_padded_kernel_route_equals_the_unpadded_plain_route(monkeypatch):
     q, k = (torch.randn(2, 24, 4, 24, generator=gen) for _ in range(2))
     v = torch.randn(2, 24, 4, 16, generator=gen)
     got = mla_attention(q, k, v, scale=24 ** -0.5)
-    assert calls == [((2, 24, 4, 64),) * 3 + (
+    assert calls == [((2, 24, 4, 32),) * 3 + (
         dict(causal=True, window=0, softcap=0.0, scale=24 ** -0.5,
              work_dims=(24, 16)),)]
     with attention_impl("xla"):
@@ -194,6 +194,8 @@ def test_mla_head_dims_of_the_published_configs():
         cfg = get_arch(arch)
         qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
         assert mla_head_dim(max(qk, cfg.v_head_dim)) == want
-    assert mla_head_dim(16) == 64
+    assert mla_head_dim(16) == 16
+    assert mla_head_dim(24) == 32
+    assert mla_head_dim(33) == 64
     with pytest.raises(ValueError, match="256"):
         mla_head_dim(257)
