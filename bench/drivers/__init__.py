@@ -1,0 +1,2 @@
+"""One driver module a kind of traffic, named by the traffic file's
+``driver`` key."""

@@ -1,0 +1,10 @@
+"""Puts the checkout's root (for ``bench``) and ``src`` (for the program)
+on the path. Run with ``python -m pytest bench/tests -q`` from the root."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for path in (ROOT / "src", ROOT):
+    if str(path) not in sys.path:
+        sys.path.insert(0, str(path))
